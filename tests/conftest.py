@@ -31,3 +31,9 @@ assert jax.devices()[0].platform == "cpu", (
     "tests must run on the CPU backend; got " + str(jax.devices()[:1]))
 assert len(jax.devices()) == 8, (
     "expected 8 virtual CPU devices, got " + str(len(jax.devices())))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU (tpu_plonk_torch kernels); "
+        "skips without one")
