@@ -6,21 +6,25 @@ GPU (written for an H100, sm_90a).  Run from the repository root:
 
 Phases, one line each (flushed, so a cut run shows how far it got):
   0  the card's name and power limit (nvidia-smi);
-  1  the kernel build (one nvcc call) and ptxas's registers / spills;
+  1  the kernel build (one nvcc per source, all started together) and
+     ptxas's registers / spills;
   2  every kernel against its plain PyTorch version on the card, exact,
      at the shapes of the 2^18 prove, with CUDA-event times;
-  3  the golden circuit's proof bytes against tests/vectors/
-     golden_proof.hex, and the every-widget circuit proved on the card
-     and on the CPU (plain versions): identical bytes;
+  3  the golden circuit's proof bytes, unblinded and blinded, against
+     tests/vectors/golden_proof.hex and golden_proof_zk.hex, and the
+     every-widget circuit preprocessed on the card and proved there and
+     on the CPU (plain versions), unblinded and blinded: identical bytes;
   4  the 2^18-gate Poseidon circuit: SRS on the card, preprocess_device,
-     two proves (first, steady) with round times, host verify; every
-     kernel's launch count must rise on that path;
+     two unblinded proves (first, steady) and two blinded ones on the
+     same DevicePK, with round times, host verify; every kernel's launch
+     count must rise on that path;
   5  a `kernels` JSON line; then the card line and the result line.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Any failure raises.
 """
 
+import dataclasses
 import json
 import os
 import statistics
@@ -43,6 +47,11 @@ G1_ADD_OPS = 12 * MUL_OPS[12]          # twelve Fp products per RCB add
 G1_MADD_OPS = 11 * MUL_OPS[12]         # eleven per mixed add (z2 = 1)
 
 LOG_N = 18
+#: the blinding seeds of the golden fixture (written by the reference's
+#: host prover) and of the other blinded proves
+GOLDEN_SEED = b"golden-zk"
+MIXED_SEED = b"smoke-zk"
+PROVE_SEED = b"smoke-zk-2^18"
 
 #: the __global__ functions behind each wrapper, demangled and mangled,
 #: for reading their device time out of a profiler trace
@@ -52,6 +61,7 @@ K_ADDSUB = ("addsub_kernel",)
 K_NTT = ("bitrev_kernel", "stage_kernel")
 K_G1ADD = ("::add_kernel", "10add_kernel")
 K_WALK = ("walk_kernel",)
+K_QUOT = ("quotient_kernel",)
 
 
 def say(*parts):
@@ -118,22 +128,34 @@ def max_abs_err(torch, a, b):
     return int(d.max()) if d.numel() else 0
 
 
+#: ptxas's names of the kernels (and of the quotient kernel's widget
+#: functions, which it compiles as functions of their own)
+PTXAS_NAMES = ("mul_kernel", "addsub_kernel", "bitrev_kernel",
+               "stage_kernel", "add_kernel", "walk_kernel",
+               "quotient_kernel", "arith_term", "range_term", "logic_term",
+               "fixed_term", "vgadd_term", "finish")
+
+
 def ptxas_summary(report: str) -> dict:
-    """kernel -> 'R regs, S B spill' from nvcc -Xptxas -v output."""
+    """kernel -> 'R regs, S B spill' from nvcc -Xptxas -v output (device
+    functions: their stack frame and spills only)."""
     out, name = {}, None
     for line in report.splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-            for key in ("mul_kernel", "addsub_kernel", "bitrev_kernel",
-                        "stage_kernel", "add_kernel", "walk_kernel"):
-                if key in name:
-                    tag = next((t for m, t in (
-                        ("FpParams", "FpParams"), ("FrParams", "FrParams"),
-                        ("ILb1E", "affine"), ("ILb0E", "projective"))
-                        if m in name), "")
-                    name = key + (f"<{tag}>" if tag else "")
+        if "Compiling entry function" in line or \
+                "Function properties for" in line:
+            full = line.split("'")[1] if "'" in line else line.split()[-1]
+            key = next((k for k in PTXAS_NAMES if k in full), None)
+            if key is None:
+                name = None
+                continue
+            tag = next((t for m, t in (
+                ("FpParams", "FpParams"), ("FrParams", "FrParams"),
+                ("ILb1E", "affine"), ("ILb0E", "projective"))
+                if m in full), "")
+            name = key + (f"<{tag}>" if tag else "")
         elif name and "spill stores" in line:
-            out[name] = line.strip().split(",")[0]
+            out[name] = line.strip().split(",")[0] + ", " + \
+                line.strip().split(",")[1].strip()
         elif name and "Used" in line and "registers" in line:
             regs = line.split("Used")[1].split("registers")[0].strip()
             out[name] = f"{regs} regs, {out.get(name, '')}"
@@ -214,6 +236,7 @@ def phase_kernels(torch, np, dev, kernels):
     from tpu_plonk_torch.poly import ntt
     from tpu_plonk_torch.curves import device_g1 as dg1
     from tpu_plonk_torch.pcs import csr_device, srs_device, msm_csr
+    from tpu_plonk_torch.proof_system import quotient
 
     cuda = torch.device("cuda")
     rng = np.random.default_rng(2024)
@@ -341,52 +364,95 @@ def phase_kernels(torch, np, dev, kernels):
            f"level 1 of a 2^{LOG_N} commit: {rows} rows, {entries} "
            f"entries (level 2 also compared)")
     del table, l1
+
+    # the quotient body on one 2^18 phase coset: 23 random inputs
+    vecs = dict(zip(quotient.IN_NAMES,
+                    (words(n, fr) for _ in quotient.IN_NAMES)))
+    scal = [words(1, fr) for _ in range(8)]
+    args = ({w: vecs[w] for w in "abcd"}, vecs["z"], vecs["pi"],
+            {k: vecs[k] for k in quotient.SEL_ORDER},
+            [vecs[f"sigma{j}"] for j in range(1, 5)], vecs["xpts"],
+            scal[6], dict(zip(("beta", "gamma", "range", "logic", "fixed",
+                               "vgadd"), scal[:6])), scal[7], vecs["l1"])
+    err = max_abs_err(torch, quotient.quotient_phase_kernel(*args),
+                      quotient.quotient_phase_plain(*args))
+    record("quotient_phase", "tpu_plonk_torch/csrc/quotient.cu",
+           "tpu_plonk/proof_system/quotient_pallas.py:215", err,
+           cuda_ms(torch, lambda: quotient.quotient_phase_kernel(*args), 10,
+                   K_QUOT),
+           cuda_ms(torch, lambda: quotient.quotient_phase_plain(*args), 1),
+           (len(quotient.IN_NAMES) + 1) * 32 * n,
+           quotient.MULS_PER_POINT * MUL_OPS[8] * n,
+           f"one 2^{LOG_N} phase coset, 23 inputs")
+    del vecs, args
     torch.cuda.empty_cache()
     return res
 
 
 def phase_proof_bytes(torch, dev):
-    """Phase 3: golden bytes on the card; mixed circuit card vs CPU."""
+    """Phase 3: golden bytes on the card, unblinded and blinded; the
+    mixed circuit card vs CPU, unblinded and blinded."""
     from tpu_plonk_torch.pcs import srs_device
     from tpu_plonk_torch.proof_system.preprocess import preprocess_device
     from tpu_plonk_torch.proof_system.engine_device import prove_device
+    from tpu_plonk_torch.proof_system.proof import BLINDED_PROOF_SIZE
     from tpu_plonk_torch.proof_system.verifier import verify
 
+    vsrs = srs_device.VerifierSRS()
     cs = golden_circuit()
     n = cs.padded_size()
     table = srs_device.device_srs_points(n + 8)
     committer = srs_device.PackedCommitter(table)
     pk, vk = preprocess_device(cs, committer)
-    proof = prove_device(cs, pk, committer)
-    with open(os.path.join(HERE, "tests", "vectors",
-                           "golden_proof.hex")) as f:
-        golden = f.read().strip()
-    if proof.to_bytes().hex() != golden:
-        raise AssertionError("golden circuit: proof bytes differ from "
-                             "tests/vectors/golden_proof.hex")
-    if not verify(proof, vk, cs.pi, srs_device.VerifierSRS()):
-        raise AssertionError("golden proof does not verify")
-    say(f"phase 3 golden circuit (n={n}): proof bytes equal "
-        f"golden_proof.hex, verified")
+    for fixture, seed in (("golden_proof.hex", None),
+                          ("golden_proof_zk.hex", GOLDEN_SEED)):
+        proof = prove_device(cs, pk, committer, blinding_seed=seed)
+        with open(os.path.join(HERE, "tests", "vectors", fixture)) as f:
+            golden = f.read().strip()
+        if proof.to_bytes().hex() != golden:
+            raise AssertionError(f"golden circuit: proof bytes differ from "
+                                 f"tests/vectors/{fixture}")
+        if not verify(proof, vk, cs.pi, vsrs):
+            raise AssertionError(f"golden proof ({fixture}) does not verify")
+        say(f"phase 3 golden circuit (n={n}): proof bytes equal {fixture}, "
+            f"{len(proof.to_bytes())} bytes, verified")
 
     cs = mixed_circuit()
     n = cs.padded_size()
     table = srs_device.device_srs_points(n + 8)
+    committer = srs_device.PackedCommitter(table)
+    t0 = time.perf_counter()
+    pk, vk = preprocess_device(cs, committer)
+    say(f"phase 3 mixed circuit (n={n}), preprocess on the card: "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the CPU proves start from the card's keys: the card's preprocess is
+    # held by the golden bytes and by every proof verifying against vk
+    pk_cpu = dataclasses.replace(
+        pk, selector_coeffs={k: v.cpu() for k, v in
+                             pk.selector_coeffs.items()},
+        sigma_coeffs=[s.cpu() for s in pk.sigma_coeffs])
     proofs = {}
-    for where, tbl, device in (("card", table, None),
-                               ("cpu", table.cpu(), "cpu")):
-        t0 = time.perf_counter()
-        committer = srs_device.PackedCommitter(tbl)
-        pk, vk = preprocess_device(cs, committer, device=device)
-        proofs[where] = prove_device(cs, pk, committer, device=device)
-        say(f"phase 3 mixed circuit (n={n}) on the {where}: "
-            f"{time.perf_counter() - t0:.1f} s")
-    if proofs["card"].to_bytes() != proofs["cpu"].to_bytes():
-        raise AssertionError("mixed circuit: card and CPU proofs differ")
-    if not verify(proofs["card"], vk, cs.pi, srs_device.VerifierSRS()):
-        raise AssertionError("mixed proof does not verify")
+    for where, key, com, device in (
+            ("card", pk, committer, None),
+            ("cpu", pk_cpu, srs_device.PackedCommitter(table.cpu()), "cpu")):
+        for seed in (None, MIXED_SEED):
+            t0 = time.perf_counter()
+            proofs[where, seed] = prove_device(
+                cs, key, com, device=device, blinding_seed=seed)
+            say(f"phase 3 mixed circuit (n={n}) on the {where}, "
+                f"{'blinded' if seed else 'unblinded'}: "
+                f"{time.perf_counter() - t0:.1f} s")
+    for seed in (None, MIXED_SEED):
+        card = proofs["card", seed].to_bytes()
+        if card != proofs["cpu", seed].to_bytes():
+            raise AssertionError(f"mixed circuit: card and CPU proofs "
+                                 f"differ (seed {seed})")
+        if not verify(proofs["card", seed], vk, cs.pi, vsrs):
+            raise AssertionError(f"mixed proof does not verify (seed {seed})")
+    if len(proofs["card", MIXED_SEED].to_bytes()) != BLINDED_PROOF_SIZE:
+        raise AssertionError("blinded mixed proof is not 1088 bytes")
     say("phase 3 mixed circuit: card and CPU proof bytes identical, "
-        "verified")
+        "unblinded and blinded, verified")
 
 
 def phase_prove(torch, kernels):
@@ -421,25 +487,37 @@ def phase_prove(torch, kernels):
     pk, vk = stage("preprocess", lambda: preprocess_device(cs, committer))
     dpk = stage("device_pk", lambda: DevicePK(pk))
     rounds = {}
-    proofs = []
-    for name in ("prove_first", "prove_steady"):
+    proofs = {}
+    for name, seed in (("prove_first", None), ("prove_steady", None),
+                       ("prove_zk_first", PROVE_SEED),
+                       ("prove_zk_steady", PROVE_SEED)):
         rounds[name] = {}
-        proofs.append(stage(name, lambda: prove_device(
-            cs, pk, committer, dpk=dpk, timings=rounds[name])))
+        proofs[name] = stage(name, lambda: prove_device(
+            cs, pk, committer, dpk=dpk, timings=rounds[name],
+            blinding_seed=seed))
         say(f"phase 4 {name} rounds: " + json.dumps(
             {k: round(v, 4) for k, v in rounds[name].items()}))
-    if proofs[0].to_bytes() != proofs[1].to_bytes():
+    data = {k: p.to_bytes() for k, p in proofs.items()}
+    if data["prove_first"] != data["prove_steady"]:
         raise AssertionError("first and steady proofs differ")
+    if data["prove_zk_first"] != data["prove_zk_steady"]:
+        raise AssertionError("first and steady blinded proofs differ")
+    if data["prove_zk_steady"] == data["prove_steady"]:
+        raise AssertionError("blinded and unblinded proofs are equal")
     vsrs = srs_device.VerifierSRS()
-    ok = stage("verify", lambda: verify(proofs[1], vk, cs.pi, vsrs))
-    if not ok:
-        raise AssertionError("2^18 proof does not verify")
-    say(f"phase 4 verified: proof {len(proofs[1].to_bytes())} bytes")
-    trace_prove(torch, lambda: prove_device(cs, pk, committer, dpk=dpk))
+    for name in ("prove_steady", "prove_zk_steady"):
+        if not stage(f"verify_{name[6:]}",
+                     lambda: verify(proofs[name], vk, cs.pi, vsrs)):
+            raise AssertionError(f"2^18 proof ({name}) does not verify")
+        say(f"phase 4 {name} verified: proof {len(data[name])} bytes")
+    trace_prove(torch, "unblinded",
+                lambda: prove_device(cs, pk, committer, dpk=dpk))
+    trace_prove(torch, "blinded", lambda: prove_device(
+        cs, pk, committer, dpk=dpk, blinding_seed=PROVE_SEED))
     return stages, counts, rounds
 
 
-def trace_prove(torch, prove):
+def trace_prove(torch, what, prove):
     """One more steady prove under torch.profiler: wall time, the summed
     device time of all kernels (the card's busy share), and the kernels
     that take most of it."""
@@ -458,9 +536,9 @@ def trace_prove(torch, prove):
             per[evt.key[:60]] = (us / 1e6, evt.count)
     busy = sum(v for v, _ in per.values())
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
-    say(f"phase 4 traced prove: wall {wall:.3f} s (under the profiler), "
-        f"device busy {busy:.3f} s ({100 * busy / wall:.1f}%)")
-    say("phase 4 traced top kernels (s, calls): " + json.dumps(
+    say(f"phase 4 traced {what} prove: wall {wall:.3f} s (under the "
+        f"profiler), device busy {busy:.3f} s ({100 * busy / wall:.1f}%)")
+    say(f"phase 4 traced {what} top kernels (s, calls): " + json.dumps(
         {k: [round(v, 4), c] for k, (v, c) in top}))
 
 
@@ -486,8 +564,8 @@ def main() -> int:
     say(f"phase 0 card: {card}")
 
     lib = kernels.library()
-    say(f"phase 1 build: {lib.build_seconds:.1f} s (one nvcc call), "
-        f"{lib.path}")
+    say(f"phase 1 build: {lib.build_seconds:.1f} s (one nvcc per source, "
+        f"in parallel), {lib.path}")
     say("phase 1 ptxas: " + json.dumps(ptxas_summary(lib.report)))
 
     metrics = phase_kernels(torch, np, dev, kernels)
@@ -495,19 +573,27 @@ def main() -> int:
     stages, counts, rounds = phase_prove(torch, kernels)
 
     main_path = ("srs", "preprocess", "device_pk", "prove_first",
-                 "prove_steady")
+                 "prove_steady", "prove_zk_first", "prove_zk_steady")
     total = {k: sum(counts[s][k] for s in main_path) for k in kernels.KERNELS}
     for name, m in metrics.items():
         m["launches"] = total[name]
     missing = [k for k, v in total.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the path: {missing}")
-    steady = counts["prove_steady"]
-    idle = [k for k in ("fr_mont_mul", "fr_add_sub", "ntt", "g1_add",
-                        "g1_csr_walk") if steady[k] == 0]
-    if idle or counts["srs"]["fp_mont_mul"] == 0:
-        raise AssertionError(f"launch counters did not rise: {idle}")
-    say("phase 4 launches per steady 2^18 prove: " + json.dumps(steady))
+    for name, phases in (("prove_steady", 4), ("prove_zk_steady", 8)):
+        steady = counts[name]
+        idle = [k for k in ("fr_mont_mul", "fr_add_sub", "ntt", "g1_add",
+                            "g1_csr_walk", "quotient_phase")
+                if steady[k] == 0]
+        if idle:
+            raise AssertionError(f"{name}: launch counters did not rise: "
+                                 f"{idle}")
+        if steady["quotient_phase"] != phases:
+            raise AssertionError(f"{name}: {steady['quotient_phase']} "
+                                 f"quotient launches, not {phases}")
+        say(f"phase 4 launches per {name} 2^18 prove: " + json.dumps(steady))
+    if counts["srs"]["fp_mont_mul"] == 0:
+        raise AssertionError("launch counters did not rise: fp_mont_mul")
     say("phase 4 stages (s): " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}))
 

@@ -14,6 +14,7 @@ from tpu_plonk_torch import kernels
 from tpu_plonk_torch.fields import device as dev
 from tpu_plonk_torch.poly import ntt
 from tpu_plonk_torch.curves import device_g1 as dg1
+from tpu_plonk_torch.proof_system import quotient
 
 
 @pytest.fixture
@@ -98,3 +99,27 @@ def test_walk_wrapper_rejects_bad_csr(cuda):
     assert kernels.counts()["g1_csr_walk"] == before
     dg1.accumulate_csr(tbl, True, idx, starts, lens)
     assert kernels.counts()["g1_csr_walk"] == before + 1
+
+
+@pytest.mark.gpu
+def test_quotient_kernel_matches_plain(cuda):
+    """K6 on a size that is not a multiple of the block (the grid-stride
+    tail and the wrap of the next row at n - 1)."""
+    n = (1 << 12) + 5
+    vecs = [_words(n, dev.FR, 100 + k, cuda)
+            for k in range(len(quotient.IN_NAMES))]
+    ins = dict(zip(quotient.IN_NAMES, vecs))
+    rng = np.random.default_rng(7)
+    scal = [dev.ints_to_words([int.from_bytes(rng.bytes(32), "little")
+                               % dev.FR.modulus], dev.FR, cuda)
+            for _ in range(8)]
+    ch = dict(zip(("beta", "gamma", "range", "logic", "fixed", "vgadd"),
+                  scal[:6]))
+    args = ({w: ins[w] for w in "abcd"}, ins["z"], ins["pi"],
+            {k: ins[k] for k in quotient.SEL_ORDER},
+            [ins[f"sigma{j}"] for j in range(1, 5)], ins["xpts"],
+            scal[6], ch, scal[7], ins["l1"])
+    before = kernels.counts()["quotient_phase"]
+    got = quotient.quotient_phase_kernel(*args)
+    assert kernels.counts()["quotient_phase"] == before + 1
+    assert torch.equal(got, quotient.quotient_phase_plain(*args))

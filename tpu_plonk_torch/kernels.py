@@ -1,11 +1,12 @@
 """Build, load and launch the port's CUDA kernels.
 
-All sources under `csrc/` are compiled by ONE `nvcc` call into one
-shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds), loaded with `ctypes`.  The library is built at
-first use into `_build/<hash of sources and flags>/`, a directory that
-git ignores, so a fresh checkout builds it on its own.  A failed build
-raises; nothing falls back to the plain versions on a CUDA tensor.
+Each source under `csrc/` is compiled by its own `nvcc` process, all
+started together, and the objects are linked into one shared library
+with a plain C interface (no PyTorch headers), loaded with `ctypes`.
+The library is built at first use into `_build/<hash of sources and
+flags>/`, a directory that git ignores, so a fresh checkout builds it on
+its own.  A failed build raises; nothing falls back to the plain
+versions on a CUDA tensor.
 
 Every exported entry point takes the CUDA stream as its last argument
 and returns `cudaGetLastError()` after its launches; `Kernel.__call__`
@@ -25,8 +26,9 @@ import torch
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD_ROOT = os.path.join(_DIR, "_build")
+#: per-source compile flags; the objects are then linked into one library
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -69,6 +71,40 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def build(out_dir: str, so: str) -> str:
+    """Compile every source under `csrc/` with its own `nvcc` process,
+    all started together, and link the objects into the library `so`.
+    Returns ptxas's report; raises if a compile or the link fails.  The
+    objects are removed whatever happens."""
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    jobs = []
+    try:
+        for name in _sources():
+            if name.endswith(".cu"):
+                obj = os.path.join(out_dir, f"{name}.{tag}.o")
+                jobs.append((obj, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, name),
+                     "-o", obj], stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)))
+        report = "".join(proc.communicate()[0] for _, proc in jobs)
+        if any(proc.returncode for _, proc in jobs):
+            raise RuntimeError("nvcc failed:\n" + report)
+        res = subprocess.run([nvcc, "-shared", "-o", so]
+                             + [obj for obj, _ in jobs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + res.stdout
+                               + res.stderr)
+        return report
+    finally:
+        for obj, proc in jobs:
+            proc.kill()
+            proc.wait()
+            if os.path.exists(obj):
+                os.remove(obj)
+
+
 def library() -> Library:
     """Build (once per source hash) and load the kernel library."""
     global _library
@@ -85,15 +121,11 @@ def library() -> Library:
     if not os.path.exists(so):
         os.makedirs(out_dir, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [
-            os.path.join(CSRC, f) for f in _sources() if f.endswith(".cu")]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        report = build(out_dir, tmp)
         seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
         with open(log, "w") as f:
-            f.write(res.stdout + res.stderr)
+            f.write(report)
         os.replace(tmp, so)
     with open(log) as f:
         report = f.read()
@@ -145,10 +177,9 @@ def counts() -> dict:
 
 
 def check_words(t: torch.Tensor, words: int, what: str):
-    """Validate a tensor handed to a kernel: CUDA, int32, contiguous,
-    last axis `words` wide."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    """Validate a tensor handed to a kernel: int32, contiguous, last axis
+    `words` wide, on a CUDA device (checked last, so the layout checks
+    also run on CPU tensors)."""
     if t.dtype != torch.int32:
         raise TypeError(f"{what}: expected int32 words, got {t.dtype}")
     if not t.is_contiguous():
@@ -156,6 +187,8 @@ def check_words(t: torch.Tensor, words: int, what: str):
     if words and (t.dim() == 0 or t.shape[-1] != words):
         raise ValueError(f"{what}: last axis must be {words}, got "
                          f"{tuple(t.shape)}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
 
 
 def operand_rows(x: torch.Tensor, shape, tail: int):

@@ -8,6 +8,10 @@ from ..curves import device_g1 as dg1
 from . import csr_device
 from . import msm_csr
 
+#: [tau^(n+k)]G1 points a blinded prove needs: z's blinding has degree 2,
+#: so its coefficients reach X^(n+2)
+BLIND_HIGHS = 3
+
 
 class DeviceCommitter:
     """Commit Montgomery coefficient tensors against an SRS.
@@ -30,6 +34,15 @@ class DeviceCommitter:
         self.max_len = points.shape[0]
         self.c = csr_device.default_c(self.max_len)
         self.chunk = csr_device.default_chunk(self.max_len, self.c)
+
+    def high_g1(self, n: int):
+        """[tau^(n+k)]G1 for k < BLIND_HIGHS, as host affine points, read
+        off the table (row i holds [tau^i]G1): what a blinded prove adds
+        to its commitments for the blinding coefficients above X^(n-1)."""
+        if n + BLIND_HIGHS > self.max_len:
+            raise ValueError(f"SRS table of {self.max_len} points is too "
+                             f"short for the blinding highs of n = {n}")
+        return tuple(dg1.affine_from_device(self.points[n:n + BLIND_HIGHS]))
 
     def commit(self, coeffs_mont):
         """(n, 8) Montgomery coefficients -> affine host point (None for

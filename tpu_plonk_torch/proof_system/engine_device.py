@@ -1,18 +1,19 @@
 """Device prover engine (mirrors tpu_plonk/proof_system/engine_device.py,
-single device, unblinded): the polynomial rounds on torch tensors, the
-transcript, proof assembly and the linearization scalars on the host.
-Proofs are byte-identical to the reference's host prover.
+single device, unblinded or blinded): the polynomial rounds on torch
+tensors, the transcript, proof assembly and the linearization scalars on
+the host.  Proofs are byte-identical to the reference's host prover.
 
 Device values are (..., 8) int32 Montgomery words (fields/device.py).
 Every `mm`/`ad`/`sb` is the Fr multiply / add-sub kernel on the card,
-every transform the NTT kernel, every commit the MSM kernels; on CPU
-tensors the same code runs the plain versions.
+every transform the NTT kernel, every commit the MSM kernels, every
+quotient phase the quotient kernel; on CPU tensors the same code runs
+the plain versions.
 
-The quotient round is phased as in the reference: the 4n extended coset
-splits into 4 interleaved size-n cosets s_i*H (s_i = g*w_4n^i), each
-evaluated with size-n transforms, and the per-phase coefficients
-recombine into t(X)'s four chunks by a 4x4 inverse Vandermonde in
-u_i = s_i^n.  No 4n-sized array exists.
+The quotient round is phased as in the reference: the Pn extended coset
+(P = 4, or 8 for a blinded prove) splits into P interleaved size-n
+cosets s_i*H (s_i = g*w_Pn^i), each evaluated with size-n transforms,
+and the per-phase coefficients recombine into t(X)'s chunks by a PxP
+inverse Vandermonde in u_i = s_i^n.  No vector longer than n exists.
 """
 
 import contextlib
@@ -20,16 +21,18 @@ import time
 
 import torch
 
-from ..params import R_MOD, K1, K2, K3, JUBJUB_D
+from ..params import R_MOD, K1, K2, K3
 from ..fields import device as dev
 from ..kernels import resolve_device
 from ..poly import ntt as nttmod
 from ..poly.domain import Domain
 from ..cs.composer import SELECTOR_NAMES
+from ..curves import g1
+from ..pcs import msm as hostmsm
 from ..transcript import Transcript
 from ..transcript import labels as L
 from . import prover as host
-from .constraints import _C83_6, _C27_2, _C2_3
+from . import quotient
 from .proof import Proof
 
 FR = dev.FR
@@ -82,124 +85,15 @@ def csub(x, v: int):
     return sb(x, cst(v, x))
 
 
-# ---------------------------------------------------------------------------
-# widget algebra (mirrors proof_system/constraints.py)
-# ---------------------------------------------------------------------------
-
-def delta_dev(x):
-    """x(x-1)(x-2)(x-3)."""
-    return mm(mm(x, csub(x, 1)), mm(csub(x, 2), csub(x, 3)))
-
-
-def arith_value_dev(w, q):
-    a, b, c, d = w
-    out = mm(q["q_m"], mm(a, b))
-    out = ad(out, mm(q["q_l"], a))
-    out = ad(out, mm(q["q_r"], b))
-    out = ad(out, mm(q["q_4"], d))
-    out = ad(out, mm(q["q_o"], c))
-    return ad(out, q["q_c"])
-
-
-def range_scalar_dev(w, wn, kappa):
-    a, b, c, d = w
-    dn = wn[3]
-    k2 = mm(kappa, kappa)
-    k3 = mm(k2, kappa)
-    out = delta_dev(sb(c, cmul(4, d)))
-    out = ad(out, mm(kappa, delta_dev(sb(b, cmul(4, c)))))
-    out = ad(out, mm(k2, delta_dev(sb(a, cmul(4, b)))))
-    return ad(out, mm(k3, delta_dev(sb(dn, cmul(4, a)))))
-
-
-def logic_scalar_dev(w, wn, q_c, kappa):
-    """2-bit quads, product wire on the current row's c (see
-    constraints.logic_scalar)."""
-    a, b, c, d = w
-    an, bn, _cn, dn = wn
-    qa = sb(an, cmul(4, a))
-    qb = sb(bn, cmul(4, b))
-    qd = sb(dn, cmul(4, d))
-    wp = c
-    l1 = delta_dev(qa)
-    l2 = delta_dev(qb)
-    l3 = delta_dev(qd)
-    l4 = sb(wp, mm(qa, qb))
-    s = ad(qa, qb)
-    sq = ad(mm(qa, qa), mm(qb, qb))
-    w2 = mm(wp, wp)
-    andv = sb(ad(ad(cmul(_C83_6, wp), cmul(3, mm(wp, sq))),
-                 ad(cmul(_C27_2, w2), cmul(_C2_3, mm(w2, wp)))),
-              ad(mm(cmul(_C27_2, wp), s), cmul(3, mm(w2, s))))
-    l5 = sb(qd, ad(mm(q_c, s), mm(sb(cst(1, q_c), cmul(3, q_c)), andv)))
-    out = l1
-    kp = kappa
-    for term in (l2, l3, l4, l5):
-        out = ad(out, mm(kp, term))
-        kp = mm(kp, kappa)
-    return out
-
-
-def fixed_scalar_dev(w, wn, q_l, q_r, q_c, kappa):
-    a, b, c, d = w
-    an, bn, _cn, dn = wn
-    k = sb(dn, cmul(2, d))
-    x_t = mm(k, q_l)
-    y_t = ad(mm(mm(k, k), csub(q_r, 1)), cst(1, k))
-    f1 = mm(mm(k, csub(k, 1)), ad(k, cst(1, k)))
-    f2 = sb(c, mm(k, q_c))
-    dabc = mm(cmul(JUBJUB_D, a), mm(b, c))
-    f3 = sb(ad(an, mm(an, dabc)), ad(mm(a, y_t), mm(b, x_t)))
-    f4 = sb(sb(bn, mm(bn, dabc)), ad(mm(b, y_t), mm(a, x_t)))
-    k2 = mm(kappa, kappa)
-    out = ad(f1, mm(kappa, f2))
-    out = ad(out, mm(k2, f3))
-    return ad(out, mm(mm(k2, kappa), f4))
-
-
-def vgadd_scalar_dev(w, wn, kappa):
-    x1, y1, x2, y2 = w
-    x3, y3, _cn, aux = wn
-    v1 = sb(aux, mm(x1, y1))
-    dp = mm(cmul(JUBJUB_D, aux), mm(x2, y2))
-    v2 = sb(ad(x3, mm(x3, dp)), ad(mm(x1, y2), mm(y1, x2)))
-    v3 = sb(sb(y3, mm(y3, dp)), ad(mm(y1, y2), mm(x1, x2)))
-    return ad(v1, ad(mm(kappa, v2), mm(mm(kappa, kappa), v3)))
-
-
-def gate_value_dev(w, wn, q, pi, ch):
-    g = ad(mm(q["q_arith"], arith_value_dev(w, q)), pi)
-    g = ad(g, mm(mm(ch["range"], q["q_range"]),
-                 range_scalar_dev(w, wn, ch["range"])))
-    g = ad(g, mm(mm(ch["logic"], q["q_logic"]),
-                 logic_scalar_dev(w, wn, q["q_c"], ch["logic"])))
-    g = ad(g, mm(mm(ch["fixed"], q["q_fixed"]),
-                 fixed_scalar_dev(w, wn, q["q_l"], q["q_r"], q["q_c"],
-                                  ch["fixed"])))
-    g = ad(g, mm(mm(ch["vgadd"], q["q_vgadd"]),
-                 vgadd_scalar_dev(w, wn, ch["vgadd"])))
-    return g
-
-
 def quotient_phase_dev(wire_ph, z_ph, pi_ph, sel_ph, sigma_ph, xpts,
                        alpha, ch, zh_inv_c, l1_vec):
-    """t evaluations over one interleaved size-n coset s_i*H.  The next
-    row is roll(-1) within the phase (index j+4 on the 4n coset is one
-    step further in j on the same phase)."""
-    w = tuple(wire_ph[c] for c in "abcd")
-    wn = tuple(torch.roll(wire_ph[c], -1, dims=0) for c in "abcd")
-    gate = gate_value_dev(w, wn, sel_ph, pi_ph, ch)
-    beta, gamma = ch["beta"], ch["gamma"]
-    num = den = None
-    for j in range(4):
-        nt = ad(ad(w[j], mm(beta, cmul(KS[j], xpts))), gamma)
-        dt = ad(ad(w[j], mm(beta, sigma_ph[j])), gamma)
-        num = nt if num is None else mm(num, nt)
-        den = dt if den is None else mm(den, dt)
-    perm = sb(mm(num, z_ph), mm(den, torch.roll(z_ph, -1, dims=0)))
-    l1_term = mm(l1_vec, csub(z_ph, 1))
-    total = ad(gate, ad(mm(alpha, perm), mm(mm(alpha, alpha), l1_term)))
-    return mm(total, zh_inv_c)
+    """t evaluations over one interleaved size-n coset s_i*H: the quotient
+    kernel on CUDA tensors (the only route there), its plain version on
+    CPU tensors (proof_system/quotient.py)."""
+    body = quotient.quotient_phase_kernel if xpts.device.type == "cuda" \
+        else quotient.quotient_phase_plain
+    return body(wire_ph, z_ph, pi_ph, sel_ph, sigma_ph, xpts, alpha, ch,
+                zh_inv_c, l1_vec)
 
 
 # ---------------------------------------------------------------------------
@@ -275,11 +169,36 @@ def _invnxn_mod(mat):
 # device prover
 # ---------------------------------------------------------------------------
 
+class PhaseSet:
+    """One quotient variant: the P interleaved size-n cosets s_i*H of the
+    Pn extended coset (s_i = g*w_Pn^i), with s_i, u_i = s_i^n, the PxP
+    inverse Vandermonde in u_i, Z_H^-1 = (u_i - 1)^-1 and the L1
+    constant (u_i - 1) / n (L1(x) = that / (x - 1) on coset i), and the
+    device tables derived from them, each built on first use."""
+
+    def __init__(self, pk, n_phases: int):
+        n = pk.n
+        g = pk.domain.coset_gen
+        w = Domain(n_phases * n).omega
+        self.n_phases = n_phases
+        self.s = [g * pow(w, i, R_MOD) % R_MOD for i in range(n_phases)]
+        self.u = [pow(si, n, R_MOD) for si in self.s]
+        self.vinv = _invnxn_mod([[pow(ui, m, R_MOD)
+                                  for m in range(n_phases)]
+                                 for ui in self.u])
+        self.zh_inv = [pow(ui - 1, -1, R_MOD) for ui in self.u]
+        self.l1c = [(ui - 1) * pk.domain.n_inv % R_MOD for ui in self.u]
+        self.pows_inv = {}      # i -> powers_of(s_i^-1)
+        self.xpts_l1 = None     # per phase: (coset points, L1 over them)
+        self.static = None      # per phase: (selector dict, sigma list)
+
+
 class DevicePK:
     """Device-resident tables derived from a ProverKey (built once): the
-    coefficient tables, sigma evaluations over H, the phase constants of
-    the quotient round and, after the first prove, the selector/sigma
-    phase transforms (circuit-static)."""
+    coefficient tables, sigma evaluations over H, and per quotient
+    variant (4 phases unblinded, 8 blinded: disjoint coset families) a
+    PhaseSet whose selector/sigma phase transforms are circuit-static
+    and cached after the first prove of that variant."""
 
     def __init__(self, pk):
         self.pk = pk
@@ -294,51 +213,56 @@ class DevicePK:
                                          device=dv) for w in "abcd"}
         self.sigma_H = list(nttmod.ntt_many(torch.stack(self.sigma_coeffs),
                                             self.log_n))
-        g = pk.domain.coset_gen
-        w4n = Domain(4 * n).omega
-        self.phase_s = [g * pow(w4n, i, R_MOD) % R_MOD for i in range(4)]
-        self.phase_u = [pow(s, n, R_MOD) for s in self.phase_s]
-        self.vinv = _invnxn_mod(
-            [[pow(u, m, R_MOD) for m in range(4)] for u in self.phase_u])
-        self.zh_inv_phase = [pow(u - 1, -1, R_MOD) for u in self.phase_u]
-        # L1(x) = (u_i - 1) * n_inv / (x - 1) on phase coset i
-        self.l1c_phase = [(u - 1) * pk.domain.n_inv % R_MOD
-                          for u in self.phase_u]
-        self._phase_pows = {}
-        self._phase_xl1 = {}
-        self.phase_static = None
+        self._phase_sets = {}
+        # [tau^(n+k)]G1 for blinded commits, filled by _resolve_high_g1
+        self._high_g1 = None
 
-    def phase_pows_inv(self, i: int):
+    def phases(self, n_phases: int) -> PhaseSet:
+        """The PhaseSet of the n_phases-phase variant, built on first use."""
+        if n_phases not in self._phase_sets:
+            self._phase_sets[n_phases] = PhaseSet(self.pk, n_phases)
+        return self._phase_sets[n_phases]
+
+    def phase_pows_inv(self, i: int, n_phases: int):
         """powers_of(s_i^-1), which undo phase i's coset scale; cached."""
-        if i not in self._phase_pows:
-            self._phase_pows[i] = powers_of(
-                to_dev_scalar(pow(self.phase_s[i], -1, R_MOD), self.device),
+        ph = self.phases(n_phases)
+        if i not in ph.pows_inv:
+            ph.pows_inv[i] = powers_of(
+                to_dev_scalar(pow(ph.s[i], -1, R_MOD), self.device),
                 1 << self.log_n)
-        return self._phase_pows[i]
+        return ph.pows_inv[i]
 
-    def phase_xpts_l1(self, i: int):
-        """(points of phase coset i, L1 over them), cached."""
-        if i not in self._phase_xl1:
-            xpts = mm(cst(self.phase_s[i], self.domain_elems),
+    def phase_xpts_l1(self, i: int, n_phases: int):
+        """(points of phase coset i, L1 over them), built for all phases
+        of the variant at once (one batch inversion) and cached."""
+        ph = self.phases(n_phases)
+        if ph.xpts_l1 is None:
+            n = 1 << self.log_n
+            dv = self.device
+            xpts = mm(to_dev(ph.s, dv)[:, None].expand(n_phases, n,
+                                                       FR.n_words),
                       self.domain_elems)
-            l1 = mm(cst(self.l1c_phase[i], xpts), batch_inv(csub(xpts, 1)))
-            self._phase_xl1[i] = (xpts, l1)
-        return self._phase_xl1[i]
+            inv = batch_inv(csub(xpts, 1).reshape(-1, FR.n_words))
+            l1 = mm(to_dev(ph.l1c, dv)[:, None].expand(n_phases, n,
+                                                       FR.n_words),
+                    inv.reshape(n_phases, n, FR.n_words))
+            ph.xpts_l1 = list(zip(xpts, l1))
+        return ph.xpts_l1[i]
 
-    def static_phases(self):
-        """Selector and sigma evaluations on the 4 phase cosets, built on
-        first use (15 transforms per phase)."""
-        if self.phase_static is None:
+    def static_phases(self, n_phases: int):
+        """Selector and sigma evaluations on the phase cosets, built on
+        first use (15 transforms per phase) and cached per variant."""
+        ph = self.phases(n_phases)
+        if ph.static is None:
             polys = torch.stack([self.sel_coeffs[k] for k in SELECTOR_NAMES]
                                 + list(self.sigma_coeffs))
             ns = len(SELECTOR_NAMES)
-            self.phase_static = []
-            for i in range(4):
-                out = list(nttmod.ntt_many(polys, self.log_n,
-                                           scale=self.phase_s[i]))
-                self.phase_static.append(
-                    (dict(zip(SELECTOR_NAMES, out[:ns])), out[ns:]))
-        return self.phase_static
+            ph.static = []
+            for s in ph.s:
+                out = list(nttmod.ntt_many(polys, self.log_n, scale=s))
+                ph.static.append((dict(zip(SELECTOR_NAMES, out[:ns])),
+                                  out[ns:]))
+        return ph.static
 
 
 def wire_values_dev(dpk: DevicePK, witness_mont):
@@ -373,6 +297,72 @@ def _aggregate_open(poly_value_pairs, v_i: int, point_i: int):
                        to_dev_scalar(z_inv, d), to_dev_scalar(agg_val, d))
 
 
+def _aggregate_open_blinded(triples, v_i: int, point_i: int, n: int):
+    """_aggregate_open for blinded polynomials: each triple is (low
+    coeffs on the device, value, host highs at X^(n+k)).  The division
+    splits linearly: (p_low - p_low(z))/(X - z) is the usual Ruffini;
+    (p_high - p_high(z))/(X - z) has the closed form b_(n+1) = h2,
+    b_n = h1 + z h2, b_(n-1) = h0 + z b_n and b_k = z^(n-1-k) b_(n-1)
+    for k <= n-1 (one scaled power ladder of z^-1).  Returns the (n, 8)
+    low quotient and its highs (b_n, b_(n+1))."""
+    vps = [pow(v_i, j, R_MOD) for j in range(len(triples))]
+    agg = lincomb(vps, [c for c, _, _ in triples])
+    agg_val = 0
+    hi = [0, 0, 0]
+    for vp, (_, value, highs) in zip(vps, triples):
+        agg_val = (agg_val + vp * value) % R_MOD
+        for k, h in enumerate(highs):
+            hi[k] = (hi[k] + vp * h) % R_MOD
+    z = point_i
+    z_inv = pow(z, -1, R_MOD)
+    zpn = pow(z, n, R_MOD)
+    v_high = (hi[0] * zpn + hi[1] * zpn * z + hi[2] * zpn * z * z) % R_MOD
+    d = agg.device
+    q_low = ruffini_dev(agg, to_dev_scalar(z, d), to_dev_scalar(z_inv, d),
+                        to_dev_scalar((agg_val - v_high) % R_MOD, d))
+    b_np1 = hi[2]
+    b_n = (hi[1] + z * hi[2]) % R_MOD
+    b_nm1 = (hi[0] + z * b_n) % R_MOD
+    q = torch.cat([q_low, torch.zeros_like(q_low[:1])], dim=0)
+    scale = b_nm1 * pow(z, n - 1, R_MOD) % R_MOD
+    if scale:
+        q = ad(q, mm(cst(scale, q),
+                     powers_of(to_dev_scalar(z_inv, d), n)))
+    return q, (b_n, b_np1)
+
+
+def _blind_commit(cm, highs, high_pts):
+    """cm + sum_k highs[k] [tau^(n+k)]G1: the commitment of a blinded
+    polynomial from its device-sized low part (KZG is linear), with a
+    few host scalar multiplications."""
+    pairs = [(high_pts[k], h) for k, h in enumerate(highs) if h]
+    if not pairs:
+        return cm
+    return g1.add(cm, hostmsm.msm_small(pairs))
+
+
+def _resolve_high_g1(dpk: DevicePK, committer, n: int):
+    """The points [tau^(n+k)]G1 a blinded prove needs, read off the
+    committer's SRS table (DeviceCommitter.high_g1) and cached on the
+    DevicePK.  Raises ValueError when the committer cannot supply them."""
+    if dpk._high_g1 is None:
+        if not hasattr(committer, "high_g1"):
+            raise ValueError("blinded prove needs [tau^(n+k)]G1 from the "
+                             "committer's SRS table: use a DeviceCommitter")
+        dpk._high_g1 = committer.high_g1(n)
+    return dpk._high_g1
+
+
+def _hi(highs, x: int, n: int) -> int:
+    """sum_k highs[k] x^(n+k): a blinded polynomial's high part at x."""
+    xp = pow(x, n, R_MOD)
+    acc = 0
+    for h in highs:
+        acc = (acc + h * xp) % R_MOD
+        xp = xp * x % R_MOD
+    return acc
+
+
 def check_committer(committer, device):
     """The device an entry point runs on (cuda unless named), which must
     be where the committer's SRS table lives."""
@@ -396,11 +386,21 @@ def _timed(out, name: str, device):
 
 
 def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
-                 timings: dict = None, device=None):
-    """Unblinded single-device prover; mirrors the reference host prover
-    round for round and produces byte-identical proofs.  `device` must
-    match the committer's (cuda unless named); `timings`, if given,
-    receives each round's seconds."""
+                 timings: dict = None, device=None,
+                 blinding_seed: bytes = None):
+    """Single-device prover; mirrors the reference host prover round for
+    round and produces byte-identical proofs.  `device` must match the
+    committer's (cuda unless named); `timings`, if given, receives each
+    round's seconds.
+
+    `blinding_seed` switches on the zero-knowledge variant (1088-byte
+    proofs, byte-identical to the reference host prover's for the same
+    seed).  Device arrays stay n-sized: the <= 3 high blinding
+    coefficients of each polynomial are host scalars, entering as
+    commitment corrections (_blind_commit), as rank-1 corrections on the
+    quotient's phase cosets (x^(n+k) = u_i x^k there) and as host
+    evaluation corrections.  deg t = 4n + 6 needs the 8n coset: eight
+    phases, an 8x8 inverse Vandermonde and five chunks."""
     dv = check_committer(committer, device)
     if label is None:
         label = L.PROTOCOL
@@ -410,6 +410,13 @@ def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
     log_n = dpk.log_n
     dom = pk.domain
     commit_many = committer.commit_many
+    blinds = host._blinders(blinding_seed, 11) \
+        if blinding_seed is not None else None
+    high_pts = _resolve_high_g1(dpk, committer, n) \
+        if blinds is not None else None
+    # host-tracked high coefficients: p = p_low + sum_k h_k X^(n+k)
+    wire_high = {w: () for w in "abcd"}
+    z_high = ()
 
     t = Transcript(label)
     t.circuit_domain_sep(n)
@@ -418,13 +425,23 @@ def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
     with _timed(timings, "r1_wires", dv):
         witness_mont = to_dev(composer.witness, dv)
         wires_H = wire_values_dev(dpk, witness_mont)
-        wire_coeffs = dict(zip("abcd", nttmod.ntt_many(
-            torch.stack([wires_H[w] for w in "abcd"]), log_n, inverse=True)))
+        wire_all = nttmod.ntt_many(
+            torch.stack([wires_H[w] for w in "abcd"]), log_n, inverse=True)
+        if blinds is not None:
+            # (b0 X + b1) Z_H per wire: -b0, -b1 at rows 0, 1; the highs
+            # b0, b1 at X^n, X^(n+1) stay on the host
+            wire_all[:, :2] = sb(wire_all[:, :2],
+                                 to_dev(blinds[:8], dv).reshape(4, 2, -1))
+            for j, w in enumerate("abcd"):
+                wire_high[w] = tuple(blinds[2 * j:2 * j + 2])
+        wire_coeffs = dict(zip("abcd", wire_all))
         comm = {}
         wire_comms = commit_many([wire_coeffs[w] for w in "abcd"])
-        for (lbl, name), cm in zip(
+        for (lbl, name), w, cm in zip(
                 ((L.W_L, "w_l"), (L.W_R, "w_r"),
-                 (L.W_O, "w_o"), (L.W_4, "w_4")), wire_comms):
+                 (L.W_O, "w_o"), (L.W_4, "w_4")), "abcd", wire_comms):
+            if blinds is not None:
+                cm = _blind_commit(cm, wire_high[w], high_pts)
             comm[name] = cm
             t.append_commitment(lbl, cm)
     beta_i = t.challenge_scalar(L.BETA)
@@ -438,7 +455,12 @@ def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
         z_H, _ = grand_product_dev(wires_H, dpk.sigma_H, dpk.domain_elems,
                                    beta, gamma)
         z_coeffs = nttmod.intt(z_H, log_n)
+        if blinds is not None:
+            z_high = tuple(blinds[8:11])
+            z_coeffs[:3] = sb(z_coeffs[:3], to_dev(z_high, dv))
         comm["z"] = committer.commit(z_coeffs)
+        if blinds is not None:
+            comm["z"] = _blind_commit(comm["z"], z_high, high_pts)
     t.append_commitment(L.Z, comm["z"])
     alpha_i = t.challenge_scalar(L.ALPHA)
     ch_i = {
@@ -452,32 +474,52 @@ def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
     ch["beta"] = beta
     ch["gamma"] = gamma
 
-    # ---------------- round 3: quotient (4 interleaved phases) -------
+    # ---------------- round 3: quotient (interleaved phases) ---------
     with _timed(timings, "r3_quotient", dv):
+        n_phases, n_chunks = (4, 4) if blinds is None else (8, 5)
+        ph = dpk.phases(n_phases)
         pi_vec = [0] * n
         for gi, val in composer.pi.items():
             pi_vec[gi] = val
         pi_coeffs = nttmod.intt(to_dev(pi_vec, dv), log_n)
         dyn = torch.stack([wire_coeffs[w] for w in "abcd"]
                           + [z_coeffs, pi_coeffs])
-        static = dpk.static_phases()
+        static = dpk.static_phases(n_phases)
         t_phase = []
-        for i in range(4):
-            out = nttmod.ntt_many(dyn, log_n, scale=dpk.phase_s[i])
+        for i in range(n_phases):
+            out = nttmod.ntt_many(dyn, log_n, scale=ph.s[i])
             wire_ph = dict(zip("abcd", out[:4]))
+            z_ph = out[4]
             sel_ph, sigma_ph = static[i]
-            xpts, l1_vec = dpk.phase_xpts_l1(i)
+            xpts, l1_vec = dpk.phase_xpts_l1(i, n_phases)
+            if blinds is not None:
+                # x^(n+k) = u_i x^k on coset i: each high part is a
+                # constant-coefficient polynomial in x there
+                u = ph.u[i]
+                for w in "abcd":
+                    b0, b1 = wire_high[w]
+                    wire_ph[w] = ad(wire_ph[w], ad(
+                        cst(u * b0 % R_MOD, xpts),
+                        mm(cst(u * b1 % R_MOD, xpts), xpts)))
+                zc = ad(cst(u * z_high[0] % R_MOD, xpts),
+                        mm(cst(u * z_high[1] % R_MOD, xpts), xpts))
+                zc = ad(zc, mm(cst(u * z_high[2] % R_MOD, xpts),
+                               mm(xpts, xpts)))
+                z_ph = ad(z_ph, zc)
             t_phase.append(quotient_phase_dev(
-                wire_ph, out[4], out[5], sel_ph, sigma_ph, xpts, alpha, ch,
-                to_dev_scalar(dpk.zh_inv_phase[i], dv), l1_vec))
+                wire_ph, z_ph, out[5], sel_ph, sigma_ph, xpts, alpha, ch,
+                to_dev_scalar(ph.zh_inv[i], dv), l1_vec))
         t_inv = nttmod.ntt_many(torch.stack(t_phase), log_n, inverse=True)
-        inv_pows = torch.stack([dpk.phase_pows_inv(i) for i in range(4)])
+        inv_pows = torch.stack([dpk.phase_pows_inv(i, n_phases)
+                                for i in range(n_phases)])
         c_phase = list(mm(t_inv, inv_pows))
-        # t_{4m+k} from the phase coefficient streams: inverse
-        # Vandermonde in u_i = s_i^n
-        chunks = lincomb_many([dpk.vinv[m] for m in range(4)], c_phase)
+        # t_{mn+k} from the phase coefficient streams: inverse
+        # Vandermonde in u_i = s_i^n (blinded: only chunks 0..4 are
+        # nonzero, deg t = 4n + 6)
+        chunks = lincomb_many(ph.vinv[:n_chunks], c_phase)
         chunk_comms = commit_many(chunks)
-        for k, lbl in enumerate((L.T_1, L.T_2, L.T_3, L.T_4)):
+        t_labels = (L.T_1, L.T_2, L.T_3, L.T_4, L.T_5)[:n_chunks]
+        for k, lbl in enumerate(t_labels):
             comm[f"t_{k + 1}"] = chunk_comms[k]
             t.append_commitment(lbl, chunk_comms[k])
     zeta_i = t.challenge_scalar(L.ZETA)
@@ -501,6 +543,14 @@ def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
         ev.update(zip(zw_names, ev_many(zw_polys, zw_pows)))
         names = list(ev)
         ev_i = dict(zip(names, from_dev(torch.cat([ev[k] for k in names]))))
+        if blinds is not None:
+            for w in "abcd":
+                ev_i[w] = (ev_i[w] + _hi(wire_high[w], zeta_i, n)) % R_MOD
+                if w != "c":
+                    ev_i[w + "_next"] = (ev_i[w + "_next"] + _hi(
+                        wire_high[w], zw_i, n)) % R_MOD
+            ev_i["z_shifted"] = (ev_i["z_shifted"]
+                                 + _hi(z_high, zw_i, n)) % R_MOD
 
         co = host.linearization_coefficients(
             ev_i, zeta_i, beta_i, gamma_i, alpha_i, ch_i, dom)
@@ -511,6 +561,9 @@ def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
             [dpk.sel_coeffs[nm] for nm in lin_names]
             + [z_coeffs, dpk.sigma_coeffs[3]])
         ev_i["r"] = from_dev(ev_many([r_coeffs], zeta_pows)[0])[0]
+        # r inherits z's high coefficients, scaled by co["z"]
+        r_high = tuple(co["z"] * h % R_MOD for h in z_high)
+        ev_i["r"] = (ev_i["r"] + _hi(r_high, zeta_i, n)) % R_MOD
         pi_at_zeta = host.eval_pi(composer.pi, dom, zeta_i)
         t_eval = host.compute_t_eval(ev_i, pi_at_zeta, zeta_i, beta_i,
                                      gamma_i, alpha_i, dom)
@@ -520,7 +573,8 @@ def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
     # ---------------- round 5: aggregate openings ----------------
     with _timed(timings, "r5_openings", dv):
         zn = pow(zeta_i, n, R_MOD)
-        t_flat = lincomb([pow(zn, k, R_MOD) for k in range(4)], chunks)
+        t_flat = lincomb([pow(zn, k, R_MOD) for k in range(n_chunks)],
+                         chunks)
         agg_zeta = [
             (t_flat, t_eval), (r_coeffs, ev_i["r"]),
             (wire_coeffs["a"], ev_i["a"]), (wire_coeffs["b"], ev_i["b"]),
@@ -539,9 +593,22 @@ def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
             (wire_coeffs["b"], ev_i["b_next"]),
             (wire_coeffs["d"], ev_i["d_next"]),
         ]
-        comm["w_z"], comm["w_zw"] = commit_many(
-            [_aggregate_open(agg_zeta, v_i, zeta_i),
-             _aggregate_open(agg_zw, v_i, zw_i)])
+        if blinds is None:
+            comm["w_z"], comm["w_zw"] = commit_many(
+                [_aggregate_open(agg_zeta, v_i, zeta_i),
+                 _aggregate_open(agg_zw, v_i, zw_i)])
+        else:
+            hz = [(), r_high] + [wire_high[w] for w in "abcd"] + [()] * 7
+            hzw = [z_high] + [wire_high[w] for w in "abd"]
+            qz, qz_high = _aggregate_open_blinded(
+                [(c, v, h) for (c, v), h in zip(agg_zeta, hz)],
+                v_i, zeta_i, n)
+            qzw, qzw_high = _aggregate_open_blinded(
+                [(c, v, h) for (c, v), h in zip(agg_zw, hzw)],
+                v_i, zw_i, n)
+            cms = commit_many([qz, qzw])
+            comm["w_z"] = _blind_commit(cms[0], qz_high, high_pts)
+            comm["w_zw"] = _blind_commit(cms[1], qzw_high, high_pts)
     t.append_commitment(L.W_Z, comm["w_z"])
     t.append_commitment(L.W_Z_W, comm["w_zw"])
 

@@ -1,6 +1,7 @@
 """The prover helpers that the verifier shares (copied from the
 reference host prover): linearization coefficients, L1 and PI
-evaluation, t(zeta), and the evaluation append order."""
+evaluation, t(zeta), and the evaluation append order; and the blinding
+scalars of a zero-knowledge prove."""
 
 from ..params import R_MOD, K1, K2, K3
 from ..fields import fr
@@ -9,6 +10,17 @@ from ..transcript import labels as L
 from . import constraints as C
 
 KS = (1, K1, K2, K3)
+
+
+def _blinders(seed: bytes, count: int):
+    """Deterministic seed-derived blinding scalars (a fixed seed gives
+    reproducible proofs; distinct seeds give statistically hiding ones).
+    The seed MUST be secret and fresh per proof for zero-knowledge."""
+    import hashlib
+    return [int.from_bytes(
+        hashlib.sha512(b"tpu-plonk blind" + seed
+                       + k.to_bytes(2, "little")).digest(),
+        "little") % R_MOD for k in range(count)]
 
 
 # ---------------------------------------------------------------------------
