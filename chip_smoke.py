@@ -9,7 +9,10 @@ Phases, one line each (flushed, so a cut run shows how far it got):
   1  the kernel build (one nvcc per source, all started together) and
      ptxas's registers / spills;
   2  every kernel against its plain PyTorch version on the card, exact,
-     at the shapes of the 2^18 prove, with CUDA-event times;
+     at the shapes of the 2^18 prove, with device times: the field
+     kernels, the NTT, the G1 add, the CSR walk's level 1 (affine) and
+     level 2 (projective) on one commit's lists, and the bucket weighting
+     on that commit's level-2 output (W = 20, B = 4,096; also B = 8);
   3  the golden circuit's proof bytes, unblinded and blinded, against
      tests/vectors/golden_proof.hex and golden_proof_zk.hex, and the
      every-widget circuit preprocessed on the card and proved there and
@@ -17,7 +20,10 @@ Phases, one line each (flushed, so a cut run shows how far it got):
   4  the 2^18-gate Poseidon circuit: SRS on the card, preprocess_device,
      two unblinded proves (first, steady) and two blinded ones on the
      same DevicePK, with round times, host verify; every kernel's launch
-     count must rise on that path;
+     count must rise on that path, the weighting must run once per
+     commit of a steady prove and the G1 add not at all (it runs in the
+     SRS stage); one more traced prove of each kind gives each kernel's
+     device time per prove;
   5  a `kernels` JSON line; then the card line and the result line.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -60,8 +66,18 @@ K_FPMUL = ("mul_kernel<FpParams>", "mul_kernelI8FpParams")
 K_ADDSUB = ("addsub_kernel",)
 K_NTT = ("bitrev_kernel", "stage_kernel")
 K_G1ADD = ("::add_kernel", "10add_kernel")
-K_WALK = ("walk_kernel",)
+K_WALK = ("walk_kernel<true>", "walk_kernelILb1E")
+K_WALK_PROJ = ("walk_kernel<false>", "walk_kernelILb0E")
+K_WEIGHT = ("weight_kernel", "weight_tree_kernel")
 K_QUOT = ("quotient_kernel",)
+#: port kernel -> its __global__ functions
+TRACE_NAMES = {"fr_mont_mul": K_FRMUL, "fp_mont_mul": K_FPMUL,
+               "fr_add_sub": K_ADDSUB, "ntt": K_NTT, "g1_add": K_G1ADD,
+               "g1_csr_walk": K_WALK, "g1_csr_walk_proj": K_WALK_PROJ,
+               "g1_bucket_weight": K_WEIGHT, "quotient_phase": K_QUOT}
+#: kernels every steady prove must launch
+PROVE_KERNELS = ("fr_mont_mul", "fr_add_sub", "ntt", "g1_csr_walk",
+                 "g1_csr_walk_proj", "g1_bucket_weight", "quotient_phase")
 
 
 def say(*parts):
@@ -128,12 +144,14 @@ def max_abs_err(torch, a, b):
     return int(d.max()) if d.numel() else 0
 
 
-#: ptxas's names of the kernels (and of the quotient kernel's widget
-#: functions, which it compiles as functions of their own)
+#: ptxas's names of the kernels (and of the functions it compiles on their
+#: own: the weighting's add and the quotient kernel's widget functions)
 PTXAS_NAMES = ("mul_kernel", "addsub_kernel", "bitrev_kernel",
                "stage_kernel", "add_kernel", "walk_kernel",
-               "quotient_kernel", "arith_term", "range_term", "logic_term",
-               "fixed_term", "vgadd_term", "finish")
+               "weight_kernel", "weight_tree_kernel", "add_points",
+               "quotient_kernel",
+               "arith_term", "range_term", "logic_term", "fixed_term",
+               "vgadd_term", "finish")
 
 
 def ptxas_summary(report: str) -> dict:
@@ -324,21 +342,22 @@ def phase_kernels(torch, np, dev, kernels):
     p = pts[:2 * half].clone()
     q = pts[torch.arange(2 * half, device=cuda) * 7 % pts.shape[0]].clone()
     q[:256] = p[:256]                        # doubling lanes
-    q[256:512] = p[256:512]                  # negated below: P - P
+    q[256:512] = p[256:512]                  # y negated below: P - P
     p[512:768] = dg1.identity((256,), cuda)  # identity + Q
     q[768:1024] = dg1.identity((256,), cuda)  # P + identity
-    neg = torch.zeros(2 * half, dtype=torch.int32, device=cuda)
-    neg[256:512] = 1
-    neg[4096:8192] = 1
-    err = max_abs_err(torch, dg1.add(p, q, neg), dg1.add_plain(p, q, neg))
+    for lo, hi in ((256, 512), (4096, 8192)):  # P - P, P - Q lanes
+        q[lo:hi, 1] = dev.sub_mod_plain(torch.zeros_like(q[lo:hi, 1]),
+                                        q[lo:hi, 1], fp)
+    err = max_abs_err(torch, dg1.add(p, q), dg1.add_plain(p, q))
     record("g1_add", "tpu_plonk_torch/csrc/g1.cu",
            "tpu_plonk/curves/pallas_g1.py:271", err,
-           cuda_ms(torch, lambda: dg1.add(p, q, neg), 10, K_G1ADD),
-           cuda_ms(torch, lambda: dg1.add_plain(p, q, neg), 1),
-           (3 * 144 + 4) * 2 * half, G1_ADD_OPS * 2 * half, "2^16")
+           cuda_ms(torch, lambda: dg1.add(p, q), 10, K_G1ADD),
+           cuda_ms(torch, lambda: dg1.add_plain(p, q), 1),
+           3 * 144 * 2 * half, G1_ADD_OPS * 2 * half, "2^16")
 
     # CSR walk on the level-1 lists of one 2^18 commit (c = 13), against
-    # a 2^18-row affine table, then level 2 on its output
+    # a 2^18-row affine table, then level 2 on its output, then the
+    # bucket weighting on level 2's output
     c = csr_device.default_c(n)
     chunk = csr_device.default_chunk(n, c)
     table = torch.stack([words(n + 8, fp), words(n + 8, fp)], dim=1)
@@ -347,10 +366,6 @@ def phase_kernels(torch, np, dev, kernels):
     l1 = dg1.accumulate_csr(table, True, ent, rs, rl)
     err = max_abs_err(torch, l1, dg1.accumulate_csr_plain(table, True, ent,
                                                           rs, rl))
-    ids = torch.arange(1, l1.shape[0] + 1, dtype=torch.int32, device=cuda)
-    err = max(err, max_abs_err(
-        torch, dg1.accumulate_csr(l1, False, ids, bf, br),
-        dg1.accumulate_csr_plain(l1, False, ids, bf, br)))
     entries = int(rl.sum())
     rows = rs.shape[0]
     record("g1_csr_walk", "tpu_plonk_torch/csrc/g1.cu",
@@ -362,8 +377,46 @@ def phase_kernels(torch, np, dev, kernels):
            96 * table.shape[0] + 4 * ent.numel() + 8 * rows + 144 * rows,
            G1_MADD_OPS * walk_adds(torch, ent, rs, rl),
            f"level 1 of a 2^{LOG_N} commit: {rows} rows, {entries} "
-           f"entries (level 2 also compared)")
-    del table, l1
+           f"entries")
+    del table
+    ids = torch.arange(1, rows + 1, dtype=torch.int32, device=cuda)
+    buckets = dg1.accumulate_csr(l1, False, ids, bf, br)
+    err = max_abs_err(torch, buckets,
+                      dg1.accumulate_csr_plain(l1, False, ids, bf, br))
+    nb = bf.shape[0]
+    record("g1_csr_walk_proj", "tpu_plonk_torch/csrc/g1.cu",
+           "tpu_plonk/curves/pallas_g1.py:416", err,
+           cuda_ms(torch, lambda: dg1.accumulate_csr(l1, False, ids, bf, br),
+                   5, K_WALK_PROJ),
+           cuda_ms(torch, lambda: dg1.accumulate_csr_plain(l1, False, ids,
+                                                           bf, br), 1),
+           144 * rows + 4 * rows + 8 * nb + 144 * nb,
+           G1_ADD_OPS * walk_adds(torch, ids, bf, br),
+           f"level 2 of the same commit: {nb} buckets over {rows} rows")
+    del l1
+    W = msm_csr.signed_window_count(c)
+    bk = buckets.reshape(W, nb // W, 3, 12)
+    bk8 = bk[:, :8].contiguous()
+    err = max(max_abs_err(torch, msm_csr.weighted_window_sums(bk),
+                          msm_csr.weighted_window_sums_plain(bk)),
+              max_abs_err(torch, msm_csr.weighted_window_sums(bk8),
+                          msm_csr.weighted_window_sums_plain(bk8)))
+    # the bound counts the function's least work, a running sum over the
+    # buckets (2 (B - 1) adds a window), not the adds the kernel's
+    # segmented scheme does, which the note gives with its depth
+    B = bk.shape[1]
+    depth, adds = msm_csr.weighting_counts(B)
+    record("g1_bucket_weight", "tpu_plonk_torch/csrc/g1.cu",
+           "tpu_plonk/pcs/msm_csr.py:526 (the K4-driven scan)", err,
+           cuda_ms(torch, lambda: msm_csr.weighted_window_sums(bk), 10,
+                   K_WEIGHT),
+           cuda_ms(torch, lambda: msm_csr.weighted_window_sums_plain(bk), 1),
+           144 * W * B + 144 * W, G1_ADD_OPS * W * 2 * (B - 1),
+           f"W = {W}, B = {B} (one 2^{LOG_N} commit; B = 8 also "
+           f"compared): bound from {W * 2 * (B - 1)} adds; the kernel does "
+           f"{W * adds} at depth {depth}, "
+           f"{msm_csr.weighting_plan(B)} (L, T, NB)")
+    del buckets, bk, bk8
 
     # the quotient body on one 2^18 phase coset: 23 random inputs
     vecs = dict(zip(quotient.IN_NAMES,
@@ -463,16 +516,18 @@ def phase_prove(torch, kernels):
         prove_device, DevicePK)
     from tpu_plonk_torch.proof_system.verifier import verify
 
-    stages, counts = {}, {}
+    stages, counts, commits = {}, {}, [0]
 
     def stage(name, fn):
         kernels.reset_counts()
+        commits[0] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         stages[name] = time.perf_counter() - t0
         counts[name] = kernels.counts()
+        counts[name]["commits"] = commits[0]
         say(f"phase 4 {name}: {stages[name]:.3f} s, launches "
             f"{json.dumps(counts[name])}")
         return out
@@ -484,6 +539,12 @@ def phase_prove(torch, kernels):
     say(f"phase 4 circuit: {cs.n_gates} gates, padded n = {n}")
     table = stage("srs", lambda: srs_device.device_srs_points(n + 8))
     committer = srs_device.PackedCommitter(table)
+    commit_one = committer.commit
+
+    def counted_commit(coeffs):
+        commits[0] += 1
+        return commit_one(coeffs)
+    committer.commit = counted_commit
     pk, vk = stage("preprocess", lambda: preprocess_device(cs, committer))
     dpk = stage("device_pk", lambda: DevicePK(pk))
     rounds = {}
@@ -519,8 +580,8 @@ def phase_prove(torch, kernels):
 
 def trace_prove(torch, what, prove):
     """One more steady prove under torch.profiler: wall time, the summed
-    device time of all kernels (the card's busy share), and the kernels
-    that take most of it."""
+    device time of all kernels (the card's busy share), each port
+    kernel's device time and calls, and the kernels that take most."""
     from torch.profiler import profile, ProfilerActivity
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -533,13 +594,21 @@ def trace_prove(torch, what, prove):
         us = getattr(evt, "self_device_time_total", 0.0)
         # an aten:: op's self device time repeats its kernels' own rows
         if us > 0 and not evt.key.startswith("aten::"):
-            per[evt.key[:60]] = (us / 1e6, evt.count)
+            per[evt.key] = (us / 1e6, evt.count)
     busy = sum(v for v, _ in per.values())
+    port = {}
+    for name, globs in TRACE_NAMES.items():
+        rows = [v for k, v in per.items() if any(g in k for g in globs)]
+        if rows:
+            port[name] = [round(sum(v for v, _ in rows), 4),
+                          sum(c for _, c in rows)]
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
     say(f"phase 4 traced {what} prove: wall {wall:.3f} s (under the "
         f"profiler), device busy {busy:.3f} s ({100 * busy / wall:.1f}%)")
+    say(f"phase 4 traced {what} port kernels (s, launches): "
+        + json.dumps(port))
     say(f"phase 4 traced {what} top kernels (s, calls): " + json.dumps(
-        {k: [round(v, 4), c] for k, (v, c) in top}))
+        {k[:60]: [round(v, 4), c] for k, (v, c) in top}))
 
 
 def main() -> int:
@@ -582,18 +651,25 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the path: {missing}")
     for name, phases in (("prove_steady", 4), ("prove_zk_steady", 8)):
         steady = counts[name]
-        idle = [k for k in ("fr_mont_mul", "fr_add_sub", "ntt", "g1_add",
-                            "g1_csr_walk", "quotient_phase")
-                if steady[k] == 0]
+        idle = [k for k in PROVE_KERNELS if steady[k] == 0]
         if idle:
             raise AssertionError(f"{name}: launch counters did not rise: "
                                  f"{idle}")
         if steady["quotient_phase"] != phases:
             raise AssertionError(f"{name}: {steady['quotient_phase']} "
                                  f"quotient launches, not {phases}")
+        if steady["g1_bucket_weight"] != steady["commits"]:
+            raise AssertionError(f"{name}: {steady['g1_bucket_weight']} "
+                                 f"weighting calls for {steady['commits']} "
+                                 f"commits")
+        if steady["g1_add"] != 0:
+            raise AssertionError(f"{name}: g1_add launched "
+                                 f"{steady['g1_add']} times in a prove")
         say(f"phase 4 launches per {name} 2^18 prove: " + json.dumps(steady))
-    if counts["srs"]["fp_mont_mul"] == 0:
-        raise AssertionError("launch counters did not rise: fp_mont_mul")
+    for k in ("fp_mont_mul", "g1_add"):
+        if counts["srs"][k] == 0:
+            raise AssertionError(f"launch counters did not rise in the SRS "
+                                 f"stage: {k}")
     say("phase 4 stages (s): " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}))
 

@@ -14,6 +14,7 @@ from tpu_plonk_torch import kernels
 from tpu_plonk_torch.fields import device as dev
 from tpu_plonk_torch.poly import ntt
 from tpu_plonk_torch.curves import device_g1 as dg1
+from tpu_plonk_torch.pcs import msm_csr
 from tpu_plonk_torch.proof_system import quotient
 
 
@@ -65,8 +66,10 @@ def test_g1_kernels_match_plain(cuda):
     q = torch.stack([_words(n, dev.FP, 20 + k, cuda) for k in range(3)], 1)
     q[:8] = p[:8]
     p[8:16] = dg1.identity((8,), cuda)
-    neg = torch.arange(n, device=cuda) % 3 == 0
-    assert torch.equal(dg1.add(p, q, neg), dg1.add_plain(p, q, neg))
+    q[16:24, 0], q[16:24, 2] = p[16:24, 0], p[16:24, 2]     # P - P
+    q[16:24, 1] = dev.sub_mod_plain(torch.zeros_like(p[16:24, 1]),
+                                    p[16:24, 1], dev.FP)
+    assert torch.equal(dg1.add(p, q), dg1.add_plain(p, q))
     rng = np.random.default_rng(5)
     lens = torch.from_numpy(rng.integers(0, 24, 500).astype(np.int32)).to(cuda)
     starts = (torch.cumsum(lens, 0) - lens).to(torch.int32)
@@ -76,6 +79,53 @@ def test_g1_kernels_match_plain(cuda):
         assert torch.equal(
             dg1.accumulate_csr(tbl, affine, idx, starts, lens),
             dg1.accumulate_csr_plain(tbl, affine, idx, starts, lens))
+
+
+@pytest.mark.gpu
+def test_walk_edge_rows_match_plain(cuda):
+    """Rows of length 0 and 1, a row of pads only, leading and trailing
+    pads, a point added to itself and to its negation, on both tables."""
+    n = 64
+    p = torch.stack([_words(n, dev.FP, 40 + k, cuda) for k in range(3)], 1)
+    rows = [[], [5], [0, 0, 0], [0, 0, 7, -3], [9, 0], [4, 4, 4],
+            [6, -6, 2], [-1], [0], list(range(1, 40))]
+    lens = torch.tensor([len(r) for r in rows], dtype=torch.int32,
+                        device=cuda)
+    starts = (torch.cumsum(lens, 0) - lens).to(torch.int32)
+    idx = torch.tensor(sum(rows, []), dtype=torch.int32, device=cuda)
+    for affine, tbl in ((True, p[:, :2].contiguous()), (False, p)):
+        kname = "g1_csr_walk" if affine else "g1_csr_walk_proj"
+        before = kernels.counts()[kname]
+        got = dg1.accumulate_csr(tbl, affine, idx, starts, lens)
+        assert kernels.counts()[kname] == before + 1
+        assert torch.equal(
+            got, dg1.accumulate_csr_plain(tbl, affine, idx, starts, lens))
+        # the kernel gathers 16 bytes at a time: a table one word off a
+        # 16-byte boundary is refused before any launch
+        flat = torch.cat([tbl.new_zeros(1), tbl.flatten()])
+        with pytest.raises(ValueError, match="aligned"):
+            dg1.accumulate_csr(flat[1:].view(tbl.shape), affine, idx,
+                               starts, lens)
+        assert kernels.counts()[kname] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [4, 11, 13])
+def test_weighting_kernel_matches_plain(cuda, c):
+    """The bucket weighting at the port's window widths (B = 8, 1,024,
+    4,096 buckets, W = 3), with identity buckets, at the window's ends
+    and inside it, and two equal adjacent buckets."""
+    W, B = 3, 1 << (c - 1)
+    bk = torch.stack([_words(W * B, dev.FP, 50 + c + k, cuda)
+                      for k in range(3)], 1).reshape(W, B, 3, 12)
+    bk[0, 0] = dg1.identity((), cuda)
+    bk[0, B - 1] = dg1.identity((), cuda)
+    bk[1, B // 2:] = dg1.identity((), cuda)
+    bk[2, 5] = bk[2, 4]
+    before = kernels.counts()["g1_bucket_weight"]
+    got = msm_csr.weighted_window_sums(bk)
+    assert kernels.counts()["g1_bucket_weight"] == before + 1
+    assert torch.equal(got, msm_csr.weighted_window_sums_plain(bk))
 
 
 @pytest.mark.gpu

@@ -11,8 +11,9 @@ in the reference's arrangement (twelve products in two layers of six),
 so projective outputs match the reference word for word.
 `accumulate_csr` sums rows of a ragged CSR list of signed 1-based table
 indices (a mixed add on an affine table: the same field values as `add`
-with z = 1).  On CUDA tensors both launch csrc/g1.cu; on CPU tensors they run
-the plain versions below.
+with z = 1).  On CUDA tensors both launch csrc/g1.cu (the walk as one
+kernel for affine tables and one for projective ones); on CPU tensors
+they run the plain versions below.
 """
 
 import torch
@@ -25,9 +26,12 @@ FP = dev.FP
 W = FP.n_words
 
 _G1_ADD = K.Kernel("g1_add", "tpk_g1_add",
-                   [K.P, K.I64, K.P, K.I64, K.P, K.P, K.I64])
-_G1_WALK = K.Kernel("g1_csr_walk", "tpk_g1_walk",
-                    [K.P, K.I32, K.P, K.P, K.P, K.P, K.I64])
+                   [K.P, K.I64, K.P, K.I64, K.P, K.I64])
+_WALK_ARGS = [K.P, K.P, K.P, K.P, K.P, K.I64]
+#: the walk over an affine table (level 1 of a commit, the SRS walk) and
+#: over a projective one (level 2 of a commit)
+_G1_WALK = K.Kernel("g1_csr_walk", "tpk_g1_walk_affine", _WALK_ARGS)
+_G1_WALK_PROJ = K.Kernel("g1_csr_walk_proj", "tpk_g1_walk_proj", _WALK_ARGS)
 
 
 def identity(shape_prefix=(), device="cpu") -> torch.Tensor:
@@ -50,18 +54,15 @@ def _sb(a, b):
     return dev.sub_mod_plain(a, b, FP)
 
 
-def add_plain(p, q, neg=None):
-    """p + q (q negated where `neg` is true) in plain torch: the
-    reference's two six-wide product layers, with the sums stacked so a
-    CPU add costs a few batched field ops."""
+def add_plain(p, q):
+    """p + q in plain torch: the reference's two six-wide product
+    layers, with the sums stacked so a CPU add costs a few batched field
+    ops."""
     shape = torch.broadcast_shapes(p.shape, q.shape)
     p = p.expand(shape)
     q = q.expand(shape)
     x1, y1, z1 = p[..., 0, :], p[..., 1, :], p[..., 2, :]
     x2, y2, z2 = q[..., 0, :], q[..., 1, :], q[..., 2, :]
-    if neg is not None:
-        y2 = torch.where(neg.bool()[..., None], _sb(torch.zeros_like(y2), y2),
-                         y2)
     st = torch.stack
     sums = _ad(st([x1, y1, x1, x2, y2, x2]), st([y1, z1, z1, y2, z2, z2]))
     p1 = _mm(st([x1, y1, z1, sums[0], sums[1], sums[2]]),
@@ -85,11 +86,10 @@ def add_plain(p, q, neg=None):
     return st([x3, yz[0], yz[1]], dim=-2)
 
 
-def add(p, q, neg=None):
-    """Complete projective addition p + q (q negated per lane where
-    `neg`, an int32/bool tensor over the batch, is set)."""
+def add(p, q):
+    """Complete projective addition p + q."""
     if p.device.type != "cuda":
-        return add_plain(p, q, neg)
+        return add_plain(p, q)
     shape = torch.broadcast_shapes(p.shape, q.shape)
     n = 1
     for d in shape[:-2]:
@@ -101,14 +101,7 @@ def add(p, q, neg=None):
     q_, nq = K.operand_rows(q, shape, 2)
     K.check_words(p_, W, "g1_add p")
     K.check_words(q_, W, "g1_add q")
-    neg_ptr = None
-    if neg is not None:
-        neg = neg.to(torch.int32).expand(shape[:-2]).contiguous()
-        if neg.device.type != "cuda":
-            raise ValueError("g1_add: neg must be on the card")
-        neg_ptr = neg.data_ptr()
-    _G1_ADD(p_.data_ptr(), np_, q_.data_ptr(), nq, neg_ptr, out.data_ptr(),
-            n)
+    _G1_ADD(p_.data_ptr(), np_, q_.data_ptr(), nq, out.data_ptr(), n)
     return out
 
 
@@ -171,6 +164,8 @@ def accumulate_csr(tbl, affine: bool, idx, row_start, row_len):
     K.check_words(tbl, W, "g1_csr_walk table")
     if tbl.dim() != 3 or tbl.shape[1] != (2 if affine else 3):
         raise ValueError("g1_csr_walk: table shape does not match mode")
+    if tbl.data_ptr() % 16:
+        raise ValueError("g1_csr_walk: table must be 16-byte aligned")
     for t, what in ((idx, "idx"), (row_start, "row_start"),
                     (row_len, "row_len")):
         K.check_words(t, 0, f"g1_csr_walk {what}")
@@ -185,8 +180,9 @@ def accumulate_csr(tbl, affine: bool, idx, row_start, row_len):
     if bool(bad):
         raise IndexError("g1_csr_walk: a row runs outside idx or an index "
                          "outside the table")
-    _G1_WALK(tbl.data_ptr(), int(affine), idx.data_ptr(),
-             row_start.data_ptr(), row_len.data_ptr(), out.data_ptr(), R)
+    (_G1_WALK if affine else _G1_WALK_PROJ)(
+        tbl.data_ptr(), idx.data_ptr(), row_start.data_ptr(),
+        row_len.data_ptr(), out.data_ptr(), R)
     return out
 
 

@@ -33,14 +33,24 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: `cuda` unless the caller names
-    another.  Without a card, the default raises instead of quietly
-    running the plain versions on the CPU."""
+    another, with the index filled in.  Without a card, the default
+    raises instead of quietly running the plain versions on the CPU.
+    Kernels launch on the current CUDA device's stream, so a CUDA device
+    other than the current one is refused."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
         raise RuntimeError(
             "tpu_plonk_torch: no CUDA device is available; pass "
             "device='cpu' to run the plain PyTorch versions")
-    return dev
+    current = torch.cuda.current_device()
+    if dev.index is not None and dev.index != current:
+        raise ValueError(
+            f"tpu_plonk_torch: asked for {dev}, but the current CUDA device "
+            f"is cuda:{current} and the kernels launch on its stream; call "
+            f"under torch.cuda.device({dev.index})")
+    return torch.device("cuda", current)
 
 
 class Library:
@@ -71,11 +81,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build(out_dir: str, so: str) -> str:
-    """Compile every source under `csrc/` with its own `nvcc` process,
-    all started together, and link the objects into the library `so`.
-    Returns ptxas's report; raises if a compile or the link fails.  The
-    objects are removed whatever happens."""
+def build(out_dir: str, so: str, flags=NVCC_FLAGS) -> str:
+    """Compile every source under `csrc/` with its own `nvcc` process
+    (compile `flags`), all started together, and link the objects into
+    the library `so`.  Returns ptxas's report; raises if a compile or
+    the link fails.  The objects are removed whatever happens."""
     tag = f"{os.getpid()}.tmp"
     nvcc = _nvcc()
     jobs = []
@@ -84,7 +94,7 @@ def build(out_dir: str, so: str) -> str:
             if name.endswith(".cu"):
                 obj = os.path.join(out_dir, f"{name}.{tag}.o")
                 jobs.append((obj, subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, name),
+                    [nvcc, *flags, "-c", os.path.join(CSRC, name),
                      "-o", obj], stdout=subprocess.PIPE,
                     stderr=subprocess.STDOUT, text=True)))
         report = "".join(proc.communicate()[0] for _, proc in jobs)
@@ -178,8 +188,9 @@ def counts() -> dict:
 
 def check_words(t: torch.Tensor, words: int, what: str):
     """Validate a tensor handed to a kernel: int32, contiguous, last axis
-    `words` wide, on a CUDA device (checked last, so the layout checks
-    also run on CPU tensors)."""
+    `words` wide, on the current CUDA device, whose stream the kernel
+    launches on (checked last, so the layout checks also run on CPU
+    tensors)."""
     if t.dtype != torch.int32:
         raise TypeError(f"{what}: expected int32 words, got {t.dtype}")
     if not t.is_contiguous():
@@ -189,6 +200,10 @@ def check_words(t: torch.Tensor, words: int, what: str):
                          f"{tuple(t.shape)}")
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    current = torch.cuda.current_device()
+    if t.device.index != current:
+        raise ValueError(f"{what}: tensor lives on {t.device}, but the "
+                         f"current CUDA device is cuda:{current}")
 
 
 def operand_rows(x: torch.Tensor, shape, tail: int):

@@ -13,9 +13,9 @@ Level 1 walks the rows against the affine point table; level 2 walks
 each bucket's rows (row ids are contiguous per bucket) against the level
 1 results; the bucket sums are then weighted per window
 (msm_csr.weighted_window_sums) and folded on the host.  The sort, the
-counts and the cumulative sums are torch ops; the walks and the adds are
-the G1 kernels.  Same bucket decomposition as the reference, so the
-affine result is the same point.
+counts and the cumulative sums are torch ops; the walks and the
+weighting are the G1 kernels.  Same bucket decomposition as the
+reference, so the affine result is the same point.
 """
 
 import torch
@@ -116,4 +116,4 @@ def window_sums(points, coeffs_mont, c: int, chunk: int):
     buckets = dg1.accumulate_csr(l1, False, ids, bf, br)
     W = msm_csr.signed_window_count(c)
     return msm_csr.weighted_window_sums(
-        buckets.reshape(W, 1 << (c - 1), 3, dg1.W), c)
+        buckets.reshape(W, 1 << (c - 1), 3, dg1.W))

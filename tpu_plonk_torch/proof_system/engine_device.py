@@ -364,10 +364,11 @@ def _hi(highs, x: int, n: int) -> int:
 
 
 def check_committer(committer, device):
-    """The device an entry point runs on (cuda unless named), which must
-    be where the committer's SRS table lives."""
+    """The device an entry point runs on (cuda unless named, the current
+    CUDA device), which must be the one, index included, where the
+    committer's SRS table lives."""
     dv = resolve_device(device)
-    if committer.device.type != dv.type:
+    if committer.device != dv:
         raise ValueError(f"committer lives on {committer.device}, "
                          f"the call asked for {dv}")
     return committer.device
@@ -406,6 +407,8 @@ def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
         label = L.PROTOCOL
     if dpk is None:
         dpk = DevicePK(pk)
+    elif dpk.device != dv:
+        raise ValueError(f"dpk lives on {dpk.device}, the committer on {dv}")
     n = pk.n
     log_n = dpk.log_n
     dom = pk.domain
