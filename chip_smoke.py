@@ -10,7 +10,9 @@ Phases, one line each (flushed, so a cut run shows how far it got):
      ptxas's registers / spills;
   2  every kernel against its plain PyTorch version on the card, exact,
      at the shapes of the 2^18 prove, with device times: the field
-     kernels, the NTT, the G1 add, the CSR walk's level 1 (affine) and
+     kernels, the NTT (batch 1 and the quotient phases' batch 6, with its
+     launches per call from a trace), the G1 add, the CSR walk's level 1
+     (affine) and
      level 2 (projective) on one commit's lists, and the bucket weighting
      on that commit's level-2 output (W = 20, B = 4,096; also B = 8);
   3  the golden circuit's proof bytes, unblinded and blinded, against
@@ -23,7 +25,8 @@ Phases, one line each (flushed, so a cut run shows how far it got):
      count must rise on that path, the weighting must run once per
      commit of a steady prove and the G1 add not at all (it runs in the
      SRS stage); one more traced prove of each kind gives each kernel's
-     device time per prove;
+     device time per prove, and the NTT's calls, transforms and CUDA
+     launches per prove;
   5  a `kernels` JSON line; then the card line and the result line.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -64,7 +67,7 @@ PROVE_SEED = b"smoke-zk-2^18"
 K_FRMUL = ("mul_kernel<FrParams>", "mul_kernelI8FrParams")
 K_FPMUL = ("mul_kernel<FpParams>", "mul_kernelI8FpParams")
 K_ADDSUB = ("addsub_kernel",)
-K_NTT = ("bitrev_kernel", "stage_kernel")
+K_NTT = ("pass_kernel",)
 K_G1ADD = ("::add_kernel", "10add_kernel")
 K_WALK = ("walk_kernel<true>", "walk_kernelILb1E")
 K_WALK_PROJ = ("walk_kernel<false>", "walk_kernelILb0E")
@@ -106,12 +109,16 @@ def walk_adds(torch, idx, row_start, row_len) -> int:
     return int((live - 1).clamp(min=0).sum())
 
 
-def cuda_ms(torch, fn, reps: int, kernels=()):
-    """Milliseconds per call of `fn` on the card: (the device time of the
-    named __global__ kernels from a torch.profiler (CUPTI) trace of
-    `reps` calls, or None without names or trace; the median of CUDA
-    events around single calls, which also counts the host's launch path
-    whenever that is longer than the kernel)."""
+def cuda_ms(torch, fn, reps: int, kernels=(), per_call: int = 1):
+    """Milliseconds per call of `fn` on the card, as (ms, ms_by, events):
+    `events` is the median of CUDA events around single calls, which also
+    counts the host's launch path whenever that is longer than the
+    kernel; `ms` is the device time of the named __global__ kernels from
+    a torch.profiler (CUPTI) trace of `reps` calls (`ms_by` "trace"), or,
+    without names or usable trace, `events` again (`ms_by` "events").
+    `per_call` is the CUDA launches one call makes: a trace that recorded
+    another count than reps x per_call of them (CUPTI has been seen to
+    drop records) is not used, and the line says so."""
     from torch.profiler import profile, ProfilerActivity
     fn()
     torch.cuda.synchronize()
@@ -126,15 +133,22 @@ def cuda_ms(torch, fn, reps: int, kernels=()):
         times.append(s.elapsed_time(e))
     events = statistics.median(times)
     if not kernels:
-        return None, events
+        return events, "events", events
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(evt, "self_device_time_total", 0.0)
-             for evt in prof.key_averages()
-             if any(k in evt.key for k in kernels))
-    return (us / reps / 1e3 if us > 0 else None), events
+    rows = [evt for evt in prof.key_averages()
+            if any(k in evt.key for k in kernels)]
+    us = sum(getattr(evt, "self_device_time_total", 0.0) for evt in rows)
+    seen = sum(evt.count for evt in rows)
+    if seen != reps * per_call:
+        say(f"phase 2 note: the trace recorded {seen} of {reps * per_call} "
+            f"launches of {kernels[0]}; CUDA events time it instead")
+        return events, "events", events
+    if us <= 0:
+        return events, "events", events
+    return us / reps / 1e3, "trace", events
 
 
 def max_abs_err(torch, a, b):
@@ -146,8 +160,8 @@ def max_abs_err(torch, a, b):
 
 #: ptxas's names of the kernels (and of the functions it compiles on their
 #: own: the weighting's add and the quotient kernel's widget functions)
-PTXAS_NAMES = ("mul_kernel", "addsub_kernel", "bitrev_kernel",
-               "stage_kernel", "add_kernel", "walk_kernel",
+PTXAS_NAMES = ("mul_kernel", "addsub_kernel", "pass_kernel",
+               "add_kernel", "walk_kernel",
                "weight_kernel", "weight_tree_kernel", "add_points",
                "quotient_kernel",
                "arith_term", "range_term", "logic_term", "fixed_term",
@@ -272,18 +286,18 @@ def phase_kernels(torch, np, dev, kernels):
     res = {}
 
     def record(name, source, replaces, err, timed, plain_timed, nbytes,
-               ops, shape):
-        (trace_ms, events_ms), (_, plain_ms) = timed, plain_timed
-        ms = events_ms if trace_ms is None else trace_ms
+               ops, shape, store=True):
+        (ms, ms_by, events_ms), plain_ms = timed, plain_timed[0]
         b, by = bound_ms(nbytes, ops)
-        res[name] = {"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": 0,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b, "bound_by": by, "library_ms": None,
-                     "shape": shape}
+        if store:
+            res[name] = {"name": name, "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": 0,
+                         "max_abs_err": err, "ms": ms, "ms_by": ms_by,
+                         "plain_ms": plain_ms, "bound_ms": b,
+                         "bound_by": by, "library_ms": None, "shape": shape}
         if err != 0:
             raise AssertionError(f"{name}: kernel != plain (err {err})")
-        say(f"phase 2 {name} {shape}: exact, {ms:.4f} ms device time "
+        say(f"phase 2 {name} {shape}: exact, {ms:.4f} ms by {ms_by} "
             f"(CUDA events per call {events_ms:.4f} ms; plain "
             f"{plain_ms:.2f} ms; bound {b:.4f} ms by {by})")
 
@@ -319,20 +333,50 @@ def phase_kernels(torch, np, dev, kernels):
            cuda_ms(torch, lambda: dev.mont_mul_plain(a, b, fp), 3),
            3 * 48 * m, MUL_OPS[12] * m, f"2^{LOG_N}+8")
 
-    # NTT, iNTT, coset NTT at 2^18
-    x = dev.mont_mul(words(n, fr), fr.const(1, cuda), fr)[None]
-    g = 7
-    err = 0
-    for inv, sc in ((False, 1), (True, 1), (False, g)):
-        err = max(err, max_abs_err(torch, ntt.ntt_many(x, LOG_N, inv, sc),
-                                   ntt.transform_plain(x, LOG_N, inv, sc)))
+    # NTT, iNTT, coset NTT at 2^18, batch 1 and 6 (a quotient phase's
+    # batch); the bound scales with the batch, the twiddle table is read
+    # once
     butterflies = (n // 2) * LOG_N
-    record("ntt", "tpu_plonk_torch/csrc/ntt.cu",
-           "tpu_plonk/poly/ntt_mxu_pl.py:149,291", err,
-           cuda_ms(torch, lambda: ntt.ntt_many(x, LOG_N), 10, K_NTT),
-           cuda_ms(torch, lambda: ntt.transform_plain(x, LOG_N), 1),
-           32 * n + 32 * n + 32 * (n // 2), MUL_OPS[8] * butterflies,
-           f"2^{LOG_N} forward (iNTT and coset NTT also compared)")
+    g = 7
+    for batch in (1, 6):
+        x = dev.mont_mul(words(batch * n, fr), fr.const(1, cuda),
+                         fr).reshape(batch, n, 8)
+        err = 0
+        for inv, sc in ((False, 1), (True, 1), (False, g)):
+            err = max(err, max_abs_err(
+                torch, ntt.ntt_many(x, LOG_N, inv, sc),
+                ntt.transform_plain(x, LOG_N, inv, sc)))
+        record("ntt", "tpu_plonk_torch/csrc/ntt.cu",
+               "tpu_plonk/poly/ntt_mxu_pl.py:149,291", err,
+               cuda_ms(torch, lambda: ntt.ntt_many(x, LOG_N), 10, K_NTT,
+                       len(ntt.pass_plan(LOG_N))),
+               cuda_ms(torch, lambda: ntt.transform_plain(x, LOG_N), 1),
+               batch * 64 * n + 32 * (n // 2),
+               batch * MUL_OPS[8] * butterflies,
+               f"2^{LOG_N} forward, batch {batch} (iNTT and coset NTT "
+               f"also compared)", store=batch == 1)
+    # one warm inverse call: CUDA launches from a trace, and no multiply
+    # launched beside the transform (the n^-1 s^j scale is in its store)
+    from torch.profiler import profile, ProfilerActivity
+    ntt.ntt_many(x, LOG_N, True, g)        # builds the n^-1 g^j table
+    torch.cuda.synchronize()
+    mul_before = kernels.counts()["fr_mont_mul"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ntt.ntt_many(x, LOG_N, True, g)
+        torch.cuda.synchronize()
+    # (one launch a pass by construction; the trace bounds it from above,
+    # since CUPTI has been seen to miss a record)
+    launched = {evt.key[:40]: evt.count for evt in prof.key_averages()
+                if evt.self_device_time_total > 0}
+    passes = sum(c for k, c in launched.items() if K_NTT[0] in k)
+    plan = ntt.pass_plan(LOG_N)
+    if (not 1 <= passes <= len(plan) or len(launched) != 1
+            or kernels.counts()["fr_mont_mul"] != mul_before):
+        raise AssertionError(f"ntt: one inverse call at 2^{LOG_N} launched "
+                             f"{launched}, not {plan} passes")
+    say(f"phase 2 ntt launches per inverse call at 2^{LOG_N}: {passes} in "
+        f"the trace (pass plan {plan}), no other kernel")
+    del x
 
     # G1 add on 2^16 real points: identity, equal and negated lanes
     half = 1 << 15
@@ -409,7 +453,7 @@ def phase_kernels(torch, np, dev, kernels):
     record("g1_bucket_weight", "tpu_plonk_torch/csrc/g1.cu",
            "tpu_plonk/pcs/msm_csr.py:526 (the K4-driven scan)", err,
            cuda_ms(torch, lambda: msm_csr.weighted_window_sums(bk), 10,
-                   K_WEIGHT),
+                   K_WEIGHT, 1 + (msm_csr.weighting_plan(B)[2] > 1)),
            cuda_ms(torch, lambda: msm_csr.weighted_window_sums_plain(bk), 1),
            144 * W * B + 144 * W, G1_ADD_OPS * W * 2 * (B - 1),
            f"W = {W}, B = {B} (one 2^{LOG_N} commit; B = 8 also "
@@ -435,8 +479,10 @@ def phase_kernels(torch, np, dev, kernels):
                    K_QUOT),
            cuda_ms(torch, lambda: quotient.quotient_phase_plain(*args), 1),
            (len(quotient.IN_NAMES) + 1) * 32 * n,
-           quotient.MULS_PER_POINT * MUL_OPS[8] * n,
-           f"one 2^{LOG_N} phase coset, 23 inputs")
+           quotient.KERNEL_MULS_PER_POINT * MUL_OPS[8] * n,
+           f"one 2^{LOG_N} phase coset, 23 inputs; bound from the "
+           f"kernel's {quotient.KERNEL_MULS_PER_POINT} multiplies a point "
+           f"(the plain version does {quotient.MULS_PER_POINT})")
     del vecs, args
     torch.cuda.empty_cache()
     return res
@@ -515,12 +561,20 @@ def phase_prove(torch, kernels):
     from tpu_plonk_torch.proof_system.engine_device import (
         prove_device, DevicePK)
     from tpu_plonk_torch.proof_system.verifier import verify
+    from tpu_plonk_torch.poly import ntt
 
-    stages, counts, commits = {}, {}, [0]
+    stages, counts, commits, transforms = {}, {}, [0], [0]
+    # count the polynomials each NTT kernel call transforms
+    transform_kernel = ntt._transform_kernel
+
+    def counted_transform(x, *rest):
+        transforms[0] += x.shape[0]
+        return transform_kernel(x, *rest)
+    ntt._transform_kernel = counted_transform
 
     def stage(name, fn):
         kernels.reset_counts()
-        commits[0] = 0
+        commits[0] = transforms[0] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -528,6 +582,7 @@ def phase_prove(torch, kernels):
         stages[name] = time.perf_counter() - t0
         counts[name] = kernels.counts()
         counts[name]["commits"] = commits[0]
+        counts[name]["ntt_transforms"] = transforms[0]
         say(f"phase 4 {name}: {stages[name]:.3f} s, launches "
             f"{json.dumps(counts[name])}")
         return out
@@ -571,10 +626,21 @@ def phase_prove(torch, kernels):
                      lambda: verify(proofs[name], vk, cs.pi, vsrs)):
             raise AssertionError(f"2^18 proof ({name}) does not verify")
         say(f"phase 4 {name} verified: proof {len(data[name])} bytes")
-    trace_prove(torch, "unblinded",
-                lambda: prove_device(cs, pk, committer, dpk=dpk))
-    trace_prove(torch, "blinded", lambda: prove_device(
-        cs, pk, committer, dpk=dpk, blinding_seed=PROVE_SEED))
+    traced = {
+        "prove_steady": trace_prove(torch, "unblinded", lambda: prove_device(
+            cs, pk, committer, dpk=dpk)),
+        "prove_zk_steady": trace_prove(torch, "blinded", lambda: prove_device(
+            cs, pk, committer, dpk=dpk, blinding_seed=PROVE_SEED))}
+    ntt._transform_kernel = transform_kernel
+    for name, port in traced.items():
+        calls = counts[name]["ntt"]
+        launches = port.get("ntt", [0.0, 0])
+        say(f"phase 4 ntt per {name} 2^{LOG_N} prove: {calls} calls, "
+            f"{counts[name]['ntt_transforms']} transforms, {launches[1]} "
+            f"CUDA launches and {launches[0]} s device time (traced prove)")
+        if not 0 < launches[1] <= 3 * calls:
+            raise AssertionError(f"{name}: {launches[1]} NTT launches for "
+                                 f"{calls} calls")
     return stages, counts, rounds
 
 
@@ -609,6 +675,7 @@ def trace_prove(torch, what, prove):
         + json.dumps(port))
     say(f"phase 4 traced {what} top kernels (s, calls): " + json.dumps(
         {k[:60]: [round(v, 4), c] for k, (v, c) in top}))
+    return port
 
 
 def main() -> int:

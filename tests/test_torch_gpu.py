@@ -50,13 +50,75 @@ def test_field_kernels_match_plain(cuda, name):
     assert after[f"{name}_mont_mul"] == before[f"{name}_mont_mul"] + 2
 
 
+def _rand_words(count, seed, device):
+    """count random Fr words below 2^254 < r, made by numpy (the large
+    sizes would take Python ints seconds)."""
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 1 << 32, size=(count, 8), dtype=np.uint64)
+    raw[:, 7] &= (1 << 30) - 1
+    return torch.from_numpy(raw.astype(np.uint32).view(np.int32)).to(device)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("log_n", [1, 4, 11])
-def test_ntt_kernel_matches_plain(cuda, log_n):
-    x = _words(3 << log_n, dev.FR, log_n, cuda).reshape(3, 1 << log_n, 8)
+@pytest.mark.parametrize("log_n,batch", [(1, 3), (4, 3), (11, 3), (18, 6),
+                                         (20, 2), (22, 1)])
+def test_ntt_kernel_matches_plain(cuda, log_n, batch):
+    """Every pass plan: one tile (2^1, 2^4), two uneven passes (2^11),
+    two (2^18 at the quotient phases' batch, 2^20) and three (2^22);
+    forward, inverse, coset forward and coset inverse, exact."""
+    n = 1 << log_n
+    if log_n < 18:
+        x = _words(batch * n, dev.FR, log_n, cuda).reshape(batch, n, 8)
+    else:
+        x = _rand_words(batch * n, log_n, cuda).reshape(batch, n, 8)
     for inverse, scale in ((False, 1), (True, 1), (False, 7), (True, 11)):
-        assert torch.equal(ntt.ntt_many(x, log_n, inverse, scale),
-                           ntt.transform_plain(x, log_n, inverse, scale))
+        before = kernels.counts()
+        got = ntt.ntt_many(x, log_n, inverse, scale)
+        after = kernels.counts()
+        assert after["ntt"] == before["ntt"] + 1
+        assert torch.equal(got, ntt.transform_plain(x, log_n, inverse, scale))
+    # a warm inverse call launches the pass kernel (one launch a pass of
+    # pass_plan, at most 3) and nothing else: no separate multiply.  The
+    # trace bounds the count from above only: CUPTI has been seen to miss
+    # one of the three records at 2^22 (PERF.md, PR 7)
+    from torch.profiler import profile, ProfilerActivity
+    ntt.ntt_many(x, log_n, True, 11)
+    torch.cuda.synchronize()
+    before = kernels.counts()["fr_mont_mul"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ntt.ntt_many(x, log_n, True, 11)
+        torch.cuda.synchronize()
+    assert kernels.counts()["fr_mont_mul"] == before
+    rows = {e.key: e.count for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+    assert [k for k in rows if "pass_kernel" not in k] == []
+    assert 1 <= sum(rows.values()) <= len(ntt.pass_plan(log_n)) <= 3
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_misaligned_rows(cuda):
+    """The NTT and K6 load 16 bytes at a time: an operand one word off a
+    16-byte boundary is refused before any launch."""
+    n = 1 << 4
+    flat = _words(3 * n + 1, dev.FR, 60, cuda).flatten()
+    x = flat[1:1 + 3 * n * 8].view(3, n, 8)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    before = kernels.counts()
+    with pytest.raises(ValueError, match="aligned"):
+        ntt.ntt_many(x, 4)
+    vecs = [_words(n, dev.FR, 61 + k, cuda)
+            for k in range(len(quotient.IN_NAMES))]
+    vecs[3] = flat[1:1 + n * 8].view(n, 8)
+    ins = dict(zip(quotient.IN_NAMES, vecs))
+    one = vecs[0][:1]
+    args = ({w: ins[w] for w in "abcd"}, ins["z"], ins["pi"],
+            {k: ins[k] for k in quotient.SEL_ORDER},
+            [ins[f"sigma{j}"] for j in range(1, 5)], ins["xpts"], one,
+            dict.fromkeys(("beta", "gamma", "range", "logic", "fixed",
+                           "vgadd"), one), one, ins["l1"])
+    with pytest.raises(ValueError, match="aligned"):
+        quotient.quotient_phase_kernel(*args)
+    assert kernels.counts() == before
 
 
 @pytest.mark.gpu

@@ -213,6 +213,17 @@ __device__ __forceinline__ void store_words(uint32_t* dst, const uint32_t* x) {
   for (int i = 0; i < N; i++) dst[i] = x[i];
 }
 
+// N words (N % 4 == 0) to a 16-byte aligned address, as uint4 stores
+template <int N>
+__device__ __forceinline__ void store_words_v(uint32_t* dst,
+                                              const uint32_t* x) {
+  static_assert(N % 4 == 0, "whole uint4s");
+  uint4* d = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int i = 0; i < N / 4; i++)
+    d[i] = make_uint4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+}
+
 // Every exported entry point returns the launch's cudaGetLastError()
 // as an int, 0 on success.
 #define TPK_EXPORT extern "C" __attribute__((visibility("default")))

@@ -114,7 +114,9 @@ FP_NEG_INV_LIMB = FP_NEG_INV & LIMB_MASK
 # PLONK permutation-argument coset constants (4 wire columns).
 # Column identity polynomials are  k_j * X  with k in (1, K1, K2, K3);
 # K1/K2/K3 must not lie in each other's cosets of H (7, 13, 17 -- the
-# dusk-plonk constants, SURVEY.md §2.7).
+# dusk-plonk constants, SURVEY.md §2.7).  csrc/quotient.cu holds them as
+# kK1..kK3 and multiplies by them with add chains written for 7, 13, 17
+# (tests/test_torch_quotient.py holds the two equal).
 # ---------------------------------------------------------------------------
 
 K1 = 7

@@ -1,12 +1,14 @@
 """NTT / iNTT over Fr on torch tensors (mirrors tpu_plonk/poly/ntt.py).
 
 Layout: (..., n, 8) int32 Montgomery words, natural order in and out,
-canonical.  One route at every size: on a CUDA tensor the radix-2
-kernel of csrc/ntt.cu (bit-reversal gather + log2(n) butterfly stages),
-on a CPU tensor the plain version below (the same radix-2 schedule in
-batched torch ops).  The kernel takes over both TPU kernels of the
-reference's MXU route, the digit pipeline of each DFT level and the
-four-step twiddle boundary (tpu_plonk/poly/ntt_mxu_pl.py).
+canonical.  One route at every size: on a CUDA tensor the kernel of
+csrc/ntt.cu, the radix-2 schedule cut into `pass_plan(log_n)` passes of
+shared-memory tiles (one launch a pass, the bit reversal and pre-scale
+folded into the first, the inverse's output scale into the last), on a
+CPU tensor the plain version below (the same radix-2 schedule, stage by
+stage, in batched torch ops).  The kernel takes over both TPU kernels
+of the reference's MXU route, the digit pipeline of each DFT level and
+the four-step twiddle boundary (tpu_plonk/poly/ntt_mxu_pl.py).
 
 `ntt_many(xs, log_n, inverse, scale)` keeps the reference's coset
 semantics (ntt.py:264-293): forward computes the transform of
@@ -14,6 +16,7 @@ x[j] * scale^j (evaluations on the coset scale*H); inverse scales output
 coefficient j by scale^j (pass scale = s^-1 to undo a coset).
 """
 
+import ctypes
 import functools
 
 import torch
@@ -25,7 +28,20 @@ from .domain import Domain
 
 FR = dev.FR
 
-_NTT = K.Kernel("ntt", "tpk_ntt", [K.P, K.P, K.P, K.P, K.I32, K.I64])
+_NTT = K.Kernel("ntt", "tpk_ntt", [K.P, K.P, K.P, K.P, K.P, K.I32, K.I64,
+                                    K.P, K.I32])
+
+#: the most butterfly stages one pass of the kernel runs (a tile of 2^10
+#: elements and its twiddles, 64 KB of shared memory)
+MAX_TILE_LOG = 10
+
+
+def pass_plan(log_n: int) -> list:
+    """The kernel's passes: stages per pass, as even as possible, each at
+    most MAX_TILE_LOG, summing to log_n (2^18: [9, 9]; 2^22: [8, 7, 7])."""
+    passes = -(-log_n // MAX_TILE_LOG)
+    k, extra = divmod(log_n, passes)
+    return [k + 1] * extra + [k] * (passes - extra)
 
 
 @functools.lru_cache(maxsize=64)
@@ -81,8 +97,9 @@ def _transform_plain(x, log_n: int, tw, pre):
     return y
 
 
-def _transform_kernel(x, log_n: int, tw, pre):
-    """Bit-reversal + stages on (B, n, 8) by the CUDA kernel."""
+def _transform_kernel(x, log_n: int, tw, pre, post):
+    """The whole transform of (B, n, 8) by the CUDA kernel: one launch a
+    pass of `pass_plan(log_n)`, pre before it and post after it."""
     x = x.contiguous()
     K.check_words(x, 8, "ntt input")
     if x.dim() != 3 or x.shape[1] != (1 << log_n):
@@ -90,11 +107,17 @@ def _transform_kernel(x, log_n: int, tw, pre):
                          f"{tuple(x.shape)}")
     if log_n < 1:
         raise ValueError("ntt: log_n must be >= 1")
+    if x.data_ptr() % 16:
+        raise ValueError("ntt input: the kernel loads 16 bytes at a time; "
+                         "the tensor must be 16-byte aligned")
     out = torch.empty_like(x)
     if x.shape[0]:
+        plan = pass_plan(log_n)
+        stages = (ctypes.c_int * len(plan))(*plan)
         _NTT(x.data_ptr(), out.data_ptr(),
-             None if pre is None else pre.data_ptr(), tw.data_ptr(),
-             log_n, x.shape[0])
+             None if pre is None else pre.data_ptr(),
+             None if post is None else post.data_ptr(), tw.data_ptr(),
+             log_n, x.shape[0], ctypes.addressof(stages), len(plan))
     return out
 
 
@@ -103,15 +126,15 @@ def _many(xs, log_n: int, inverse: bool, scale: int, plain: bool):
     d = str(xs.device)
     plain = plain or xs.device.type != "cuda"
     tw = _twiddles(log_n, inverse, d, plain)
-    pre = None
+    pre = post = None
     if not inverse and scale != 1:
         pre = _powers(scale, 1 << log_n, d, plain)
-    run = _transform_plain if plain else _transform_kernel
-    y = run(xs, log_n, tw, pre)
-    if not inverse:
-        return y
-    mul = dev.mont_mul_plain if plain else dev.mont_mul
-    return mul(y, _post_scale(scale, log_n, d, plain), FR)
+    if inverse:
+        post = _post_scale(scale, log_n, d, plain)
+    if not plain:
+        return _transform_kernel(xs, log_n, tw, pre, post)
+    y = _transform_plain(xs, log_n, tw, pre)
+    return y if post is None else dev.mont_mul_plain(y, post, FR)
 
 
 def transform_plain(xs, log_n: int, inverse: bool = False, scale: int = 1):

@@ -5,11 +5,12 @@ widgets), the permutation term, the L1 term and the Z_H^-1 scale.
 
 `quotient_phase_kernel` launches csrc/quotient.cu (K6's port) on CUDA
 tensors; `quotient_phase_plain` computes the same in plain torch on the
-plain field ops, on any device.  Both follow the reference kernel's
-order of operations and read the next row at (j + 1) mod n (each phase
-is self-contained: index j+P on the P-phase coset is one step further in
-j on the same phase).  Montgomery values are canonical and the field ops
-exact, so the two agree bit for bit.
+plain field ops, on any device, in the reference kernel's order of
+operations.  The CUDA kernel regroups some widgets' algebra to do fewer
+multiplies (its source note lists how); both read the next row at
+(j + 1) mod n (each phase is self-contained: index j+P on the P-phase
+coset is one step further in j on the same phase).  Montgomery values
+are canonical and the field ops exact, so the two agree bit for bit.
 
 Arguments, as engine_device passes them: wire_ph {a,b,c,d}, z_ph, pi_ph,
 sel_ph {name: values}, sigma_ph [4], xpts and l1_vec, each (n, 8)
@@ -35,14 +36,19 @@ SEL_ORDER = ("q_m", "q_l", "q_r", "q_o", "q_4", "q_c", "q_arith",
 #: the kernel's inputs, in csrc/quotient.cu's `In` order
 IN_NAMES = ("a", "b", "c", "d", "z", "pi") + SEL_ORDER + (
     "sigma1", "sigma2", "sigma3", "sigma4", "xpts", "l1")
-#: constant-table rows (the reference's _COLS): Montgomery form except
-#: the modulus and -q^-1, which the reference's REDC reads
+#: constant-table rows (the reference's _COLS less its k1..k3, which
+#: csrc/quotient.cu holds as constants): Montgomery form except the
+#: modulus and -q^-1, which the reference's REDC reads
 COLS = ("mod", "ninv", "one", "beta", "gamma", "alpha",
         "kr", "kl", "kf", "kv", "zh_inv",
-        "jubjub_d", "c83_6", "c27_2", "c2_3", "k1", "k2", "k3")
-#: Fr multiplies per point with a point-dependent operand, in the kernel
-#: and in quotient_phase_plain (products of two challenges are made once)
+        "jubjub_d", "c83_6", "c27_2", "c2_3")
+#: Fr multiplies per point with a point-dependent operand in
+#: quotient_phase_plain (products of two challenges are made once)
 MULS_PER_POINT = 107
+#: the same in the CUDA kernel, whose regrouped algebra needs fewer: the
+#: least the function needs as far as this port knows, so the kernel's
+#: bound counts these
+KERNEL_MULS_PER_POINT = 89
 
 _QUOTIENT = K.Kernel("quotient_phase", "tpk_quotient_phase",
                      [K.P, K.P, K.P, K.I64])
@@ -50,20 +56,19 @@ _QUOTIENT = K.Kernel("quotient_phase", "tpk_quotient_phase",
 
 @functools.lru_cache(maxsize=None)
 def _static_rows(device: str) -> torch.Tensor:
-    """(18, 8) table with the circuit-independent rows filled."""
+    """(15, 8) table with the circuit-independent rows filled."""
     t = torch.zeros(len(COLS), FR.n_words, dtype=torch.int32)
     t[0] = torch.from_numpy(FR.words(FR.modulus))
     t[1] = torch.from_numpy(FR.words(
         (-pow(FR.modulus, -1, FR.mont_r)) % FR.mont_r))
     for name, v in (("one", 1), ("jubjub_d", JUBJUB_D), ("c83_6", _C83_6),
-                    ("c27_2", _C27_2), ("c2_3", _C2_3),
-                    ("k1", K1), ("k2", K2), ("k3", K3)):
+                    ("c27_2", _C27_2), ("c2_3", _C2_3)):
         t[COLS.index(name)] = FR.const(v, "cpu")[0]
     return t.to(device)
 
 
 def const_table(alpha, ch, zh_inv_c) -> torch.Tensor:
-    """The (18, 8) constant table on the challenges' device, assembled
+    """The (15, 8) constant table on the challenges' device, assembled
     there from the (1, 8) challenge tensors (no host round trip)."""
     st = _static_rows(str(alpha.device))
     dyn = [ch["beta"], ch["gamma"], alpha, ch["range"], ch["logic"],
@@ -84,6 +89,10 @@ def quotient_phase_kernel(wire_ph, z_ph, pi_ph, sel_ph, sigma_ph, xpts,
             raise ValueError(f"quotient_phase {name}: expected ({n}, 8) on "
                              f"{ins[0].device}, got {tuple(t.shape)} on "
                              f"{t.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"quotient_phase {name}: the kernel loads 16 "
+                             f"bytes at a time; the tensor must be 16-byte "
+                             f"aligned")
     table = const_table(alpha, ch, zh_inv_c)
     K.check_words(table, FR.n_words, "quotient_phase constants")
     if table.shape != (len(COLS), FR.n_words) or \
