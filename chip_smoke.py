@@ -27,7 +27,19 @@ Phases, one line each (flushed, so a cut run shows how far it got):
      SRS stage); one more traced prove of each kind gives each kernel's
      device time per prove, and the NTT's calls, transforms and CUDA
      launches per prove;
-  5  a `kernels` JSON line; then the card line and the result line.
+  6  the user entry points: `tpu_plonk_torch.cli prove` on the
+     MockCircuit (n = 4,096), unblinded and --blind, whose .proof/.vk/.pi
+     must equal the reference CLI's (tests/vectors/mock_circuit*) byte
+     for byte, `cli verify` (0 on them, 1 with one bit flipped), and the
+     Circuit API (compile, gen_proof, verify_proof) on a small circuit;
+  7  the 2^20-gate Poseidon circuit at full width: preprocess through
+     preprocess_device_cached in a temporary directory (a miss, then a
+     hit with equal keys; the directory is deleted), then one unblinded
+     and one blinded prove, both verified, with stage seconds, peak
+     device memory and launches per prove checked as in phase 4;
+  5  (printed last) a `kernels` JSON line (launches on the 2^18 path,
+     and on the paths of phases 6 and 7); then the card line and the
+     result line.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Any failure raises.
@@ -61,23 +73,9 @@ LOG_N = 18
 GOLDEN_SEED = b"golden-zk"
 MIXED_SEED = b"smoke-zk"
 PROVE_SEED = b"smoke-zk-2^18"
+#: the size of phase 7's prove: the benchmark's headline circuit
+SCALE_LOG_N = 20
 
-#: the __global__ functions behind each wrapper, demangled and mangled,
-#: for reading their device time out of a profiler trace
-K_FRMUL = ("mul_kernel<FrParams>", "mul_kernelI8FrParams")
-K_FPMUL = ("mul_kernel<FpParams>", "mul_kernelI8FpParams")
-K_ADDSUB = ("addsub_kernel",)
-K_NTT = ("pass_kernel",)
-K_G1ADD = ("::add_kernel", "10add_kernel")
-K_WALK = ("walk_kernel<true>", "walk_kernelILb1E")
-K_WALK_PROJ = ("walk_kernel<false>", "walk_kernelILb0E")
-K_WEIGHT = ("weight_kernel", "weight_tree_kernel")
-K_QUOT = ("quotient_kernel",)
-#: port kernel -> its __global__ functions
-TRACE_NAMES = {"fr_mont_mul": K_FRMUL, "fp_mont_mul": K_FPMUL,
-               "fr_add_sub": K_ADDSUB, "ntt": K_NTT, "g1_add": K_G1ADD,
-               "g1_csr_walk": K_WALK, "g1_csr_walk_proj": K_WALK_PROJ,
-               "g1_bucket_weight": K_WEIGHT, "quotient_phase": K_QUOT}
 #: kernels every steady prove must launch
 PROVE_KERNELS = ("fr_mont_mul", "fr_add_sub", "ntt", "g1_csr_walk",
                  "g1_csr_walk_proj", "g1_bucket_weight", "quotient_phase")
@@ -269,6 +267,7 @@ def phase_kernels(torch, np, dev, kernels):
     from tpu_plonk_torch.curves import device_g1 as dg1
     from tpu_plonk_torch.pcs import csr_device, srs_device, msm_csr
     from tpu_plonk_torch.proof_system import quotient
+    from tpu_plonk_torch.utils.profiling import TRACE_NAMES as TN
 
     cuda = torch.device("cuda")
     rng = np.random.default_rng(2024)
@@ -308,7 +307,8 @@ def phase_kernels(torch, np, dev, kernels):
                       dev.mont_mul_plain(a, b, fr))
     record("fr_mont_mul", "tpu_plonk_torch/csrc/field_ops.cu",
            "tpu_plonk/fields/pallas_fr.py:166", err,
-           cuda_ms(torch, lambda: dev.mont_mul(a, b, fr), 20, K_FRMUL),
+           cuda_ms(torch, lambda: dev.mont_mul(a, b, fr), 20,
+                   TN["fr_mont_mul"]),
            cuda_ms(torch, lambda: dev.mont_mul_plain(a, b, fr), 3),
            3 * 32 * n, MUL_OPS[8] * n, f"2^{LOG_N}")
     err = max(max_abs_err(torch, dev.add_mod(a, b, fr),
@@ -317,7 +317,8 @@ def phase_kernels(torch, np, dev, kernels):
                           dev.sub_mod_plain(a, b, fr)))
     record("fr_add_sub", "tpu_plonk_torch/csrc/field_ops.cu",
            "none: XLA add_mod/sub_mod in tpu_plonk/fields/device.py:142",
-           err, cuda_ms(torch, lambda: dev.sub_mod(a, b, fr), 20, K_ADDSUB),
+           err, cuda_ms(torch, lambda: dev.sub_mod(a, b, fr), 20,
+                        TN["fr_add_sub"]),
            cuda_ms(torch, lambda: dev.sub_mod_plain(a, b, fr), 3),
            3 * 32 * n, 2 * 8 * n, f"2^{LOG_N}")
 
@@ -329,7 +330,8 @@ def phase_kernels(torch, np, dev, kernels):
                       dev.mont_mul_plain(a, b, fp))
     record("fp_mont_mul", "tpu_plonk_torch/csrc/field_ops.cu",
            "none: XLA mont_mul (FP) in tpu_plonk/fields/device.py:327",
-           err, cuda_ms(torch, lambda: dev.mont_mul(a, b, fp), 20, K_FPMUL),
+           err, cuda_ms(torch, lambda: dev.mont_mul(a, b, fp), 20,
+                        TN["fp_mont_mul"]),
            cuda_ms(torch, lambda: dev.mont_mul_plain(a, b, fp), 3),
            3 * 48 * m, MUL_OPS[12] * m, f"2^{LOG_N}+8")
 
@@ -348,34 +350,40 @@ def phase_kernels(torch, np, dev, kernels):
                 ntt.transform_plain(x, LOG_N, inv, sc)))
         record("ntt", "tpu_plonk_torch/csrc/ntt.cu",
                "tpu_plonk/poly/ntt_mxu_pl.py:149,291", err,
-               cuda_ms(torch, lambda: ntt.ntt_many(x, LOG_N), 10, K_NTT,
+               cuda_ms(torch, lambda: ntt.ntt_many(x, LOG_N), 10, TN["ntt"],
                        len(ntt.pass_plan(LOG_N))),
                cuda_ms(torch, lambda: ntt.transform_plain(x, LOG_N), 1),
                batch * 64 * n + 32 * (n // 2),
                batch * MUL_OPS[8] * butterflies,
                f"2^{LOG_N} forward, batch {batch} (iNTT and coset NTT "
                f"also compared)", store=batch == 1)
-    # one warm inverse call: CUDA launches from a trace, and no multiply
+    # warm inverse calls: CUDA launches from a trace, and no multiply
     # launched beside the transform (the n^-1 s^j scale is in its store)
     from torch.profiler import profile, ProfilerActivity
     ntt.ntt_many(x, LOG_N, True, g)        # builds the n^-1 g^j table
     torch.cuda.synchronize()
     mul_before = kernels.counts()["fr_mont_mul"]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ntt.ntt_many(x, LOG_N, True, g)
-        torch.cuda.synchronize()
+    calls, plan = 5, ntt.pass_plan(LOG_N)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                ntt.ntt_many(x, LOG_N, True, g)
+            torch.cuda.synchronize()
+        launched = {evt.key[:40]: evt.count for evt in prof.key_averages()
+                    if evt.self_device_time_total > 0}
+        if launched:
+            break
+        # a trace that recorded nothing at all (seen with one call under
+        # a newer torch) is taken again
     # (one launch a pass by construction; the trace bounds it from above,
     # since CUPTI has been seen to miss a record)
-    launched = {evt.key[:40]: evt.count for evt in prof.key_averages()
-                if evt.self_device_time_total > 0}
-    passes = sum(c for k, c in launched.items() if K_NTT[0] in k)
-    plan = ntt.pass_plan(LOG_N)
-    if (not 1 <= passes <= len(plan) or len(launched) != 1
+    passes = sum(c for k, c in launched.items() if TN["ntt"][0] in k)
+    if (not 1 <= passes <= calls * len(plan) or len(launched) != 1
             or kernels.counts()["fr_mont_mul"] != mul_before):
-        raise AssertionError(f"ntt: one inverse call at 2^{LOG_N} launched "
-                             f"{launched}, not {plan} passes")
-    say(f"phase 2 ntt launches per inverse call at 2^{LOG_N}: {passes} in "
-        f"the trace (pass plan {plan}), no other kernel")
+        raise AssertionError(f"ntt: {calls} inverse calls at 2^{LOG_N} "
+                             f"launched {launched}, not {plan} passes each")
+    say(f"phase 2 ntt launches in {calls} inverse calls at 2^{LOG_N}: "
+        f"{passes} in the trace (pass plan {plan}), no other kernel")
     del x
 
     # G1 add on 2^16 real points: identity, equal and negated lanes
@@ -395,7 +403,7 @@ def phase_kernels(torch, np, dev, kernels):
     err = max_abs_err(torch, dg1.add(p, q), dg1.add_plain(p, q))
     record("g1_add", "tpu_plonk_torch/csrc/g1.cu",
            "tpu_plonk/curves/pallas_g1.py:271", err,
-           cuda_ms(torch, lambda: dg1.add(p, q), 10, K_G1ADD),
+           cuda_ms(torch, lambda: dg1.add(p, q), 10, TN["g1_add"]),
            cuda_ms(torch, lambda: dg1.add_plain(p, q), 1),
            3 * 144 * 2 * half, G1_ADD_OPS * 2 * half, "2^16")
 
@@ -415,7 +423,8 @@ def phase_kernels(torch, np, dev, kernels):
     record("g1_csr_walk", "tpu_plonk_torch/csrc/g1.cu",
            "tpu_plonk/curves/pallas_g1.py:416", err,
            cuda_ms(torch, lambda: dg1.accumulate_csr(table, True, ent, rs,
-                                                     rl), 3, K_WALK),
+                                                     rl), 3,
+                   TN["g1_csr_walk"]),
            cuda_ms(torch, lambda: dg1.accumulate_csr_plain(table, True, ent,
                                                            rs, rl), 1),
            96 * table.shape[0] + 4 * ent.numel() + 8 * rows + 144 * rows,
@@ -431,7 +440,7 @@ def phase_kernels(torch, np, dev, kernels):
     record("g1_csr_walk_proj", "tpu_plonk_torch/csrc/g1.cu",
            "tpu_plonk/curves/pallas_g1.py:416", err,
            cuda_ms(torch, lambda: dg1.accumulate_csr(l1, False, ids, bf, br),
-                   5, K_WALK_PROJ),
+                   5, TN["g1_csr_walk_proj"]),
            cuda_ms(torch, lambda: dg1.accumulate_csr_plain(l1, False, ids,
                                                            bf, br), 1),
            144 * rows + 4 * rows + 8 * nb + 144 * nb,
@@ -453,7 +462,8 @@ def phase_kernels(torch, np, dev, kernels):
     record("g1_bucket_weight", "tpu_plonk_torch/csrc/g1.cu",
            "tpu_plonk/pcs/msm_csr.py:526 (the K4-driven scan)", err,
            cuda_ms(torch, lambda: msm_csr.weighted_window_sums(bk), 10,
-                   K_WEIGHT, 1 + (msm_csr.weighting_plan(B)[2] > 1)),
+                   TN["g1_bucket_weight"],
+                   1 + (msm_csr.weighting_plan(B)[2] > 1)),
            cuda_ms(torch, lambda: msm_csr.weighted_window_sums_plain(bk), 1),
            144 * W * B + 144 * W, G1_ADD_OPS * W * 2 * (B - 1),
            f"W = {W}, B = {B} (one 2^{LOG_N} commit; B = 8 also "
@@ -476,7 +486,7 @@ def phase_kernels(torch, np, dev, kernels):
     record("quotient_phase", "tpu_plonk_torch/csrc/quotient.cu",
            "tpu_plonk/proof_system/quotient_pallas.py:215", err,
            cuda_ms(torch, lambda: quotient.quotient_phase_kernel(*args), 10,
-                   K_QUOT),
+                   TN["quotient_phase"]),
            cuda_ms(torch, lambda: quotient.quotient_phase_plain(*args), 1),
            (len(quotient.IN_NAMES) + 1) * 32 * n,
            quotient.KERNEL_MULS_PER_POINT * MUL_OPS[8] * n,
@@ -648,34 +658,225 @@ def trace_prove(torch, what, prove):
     """One more steady prove under torch.profiler: wall time, the summed
     device time of all kernels (the card's busy share), each port
     kernel's device time and calls, and the kernels that take most."""
-    from torch.profiler import profile, ProfilerActivity
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prove()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    per = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", 0.0)
-        # an aten:: op's self device time repeats its kernels' own rows
-        if us > 0 and not evt.key.startswith("aten::"):
-            per[evt.key] = (us / 1e6, evt.count)
-    busy = sum(v for v, _ in per.values())
-    port = {}
-    for name, globs in TRACE_NAMES.items():
-        rows = [v for k, v in per.items() if any(g in k for g in globs)]
-        if rows:
-            port[name] = [round(sum(v for v, _ in rows), 4),
-                          sum(c for _, c in rows)]
-    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
+    from tpu_plonk_torch.utils import profiling
+    wall, busy, port, top = profiling.trace(prove)
     say(f"phase 4 traced {what} prove: wall {wall:.3f} s (under the "
         f"profiler), device busy {busy:.3f} s ({100 * busy / wall:.1f}%)")
     say(f"phase 4 traced {what} port kernels (s, launches): "
         + json.dumps(port))
-    say(f"phase 4 traced {what} top kernels (s, calls): " + json.dumps(
-        {k[:60]: [round(v, 4), c] for k, (v, c) in top}))
+    say(f"phase 4 traced {what} top kernels (s, calls): " + json.dumps(top))
     return port
+
+
+def check_prove_launches(name: str, steady: dict, phases: int, where: str):
+    """A prove's launch counts: every prove kernel ran, the quotient
+    kernel once a phase, the weighting once a commit, the G1 add never
+    (it runs in the SRS stage)."""
+    idle = [k for k in PROVE_KERNELS if steady[k] == 0]
+    if idle:
+        raise AssertionError(f"{where} {name}: launch counters did not "
+                             f"rise: {idle}")
+    if steady["quotient_phase"] != phases:
+        raise AssertionError(f"{where} {name}: {steady['quotient_phase']} "
+                             f"quotient launches, not {phases}")
+    if steady["g1_bucket_weight"] != steady["commits"]:
+        raise AssertionError(f"{where} {name}: {steady['g1_bucket_weight']} "
+                             f"weighting calls for {steady['commits']} "
+                             f"commits")
+    if steady["g1_add"] != 0:
+        raise AssertionError(f"{where} {name}: g1_add launched "
+                             f"{steady['g1_add']} times in a prove")
+
+
+def phase_entry_points(torch, kernels):
+    """Phase 6: the user entry points on the card.  `cli prove` on the
+    MockCircuit (n = 4,096), unblinded and --blind: its artifacts equal
+    the reference CLI's (tests/vectors/mock_circuit*) byte for byte;
+    `cli verify` accepts them and refuses a copy with one bit flipped;
+    the Circuit API (compile, gen_proof, verify_proof) on a small
+    circuit.  Returns the path's launch counts."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from tpu_plonk_torch import cli
+    from tpu_plonk_torch.params import R_MOD
+    from tpu_plonk_torch.circuits import Circuit, verify_proof
+    from tpu_plonk_torch.pcs import srs as srs_mod
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        return rc, buf.getvalue().strip()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    kernels.reset_counts()
+    try:
+        for name, extra in (("mock_circuit", []),
+                            ("mock_circuit_zk", ["--blind", "mock-zk"])):
+            out = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            rc, text = run_cli(["prove", "--engine", "device", "--out", out]
+                               + extra)
+            if rc != 0:
+                raise AssertionError(f"cli prove {extra} exited {rc}: {text}")
+            secs = time.perf_counter() - t0
+            for ext in ("proof", "vk", "pi"):
+                with open(f"{out}.{ext}", "rb") as f, open(os.path.join(
+                        HERE, "tests", "vectors", f"{name}.{ext}"), "rb") as g:
+                    if f.read() != g.read():
+                        raise AssertionError(f"cli prove: {name}.{ext} "
+                                             f"differs from the reference's")
+            rc, text = run_cli(["verify", "--out", out])
+            if rc != 0:
+                raise AssertionError(f"cli verify of {name} exited {rc}: "
+                                     f"{text}")
+            with open(f"{out}.proof", "r+b") as f:
+                data = bytearray(f.read())
+                data[-40] ^= 1
+                f.seek(0)
+                f.write(data)
+            rc_bad, text_bad = run_cli(["verify", "--out", out])
+            if rc_bad != 1:
+                raise AssertionError(f"cli verify of a flipped {name} "
+                                     f"exited {rc_bad}: {text_bad}")
+            say(f"phase 6 cli prove {name} (n = 4096) on the card: "
+                f"{secs:.2f} s, .proof/.vk/.pi equal the reference's; "
+                f"verify {text} (rc 0); one bit flipped: rc {rc_bad}")
+    finally:
+        shutil.rmtree(tmp)
+
+    class Factor(Circuit):
+        """Knowledge of p, q with p q = n for a public n."""
+
+        def __init__(self, p, q):
+            self.p, self.q = p, q
+
+        def gadget(self, composer):
+            a = composer.add_input(self.p)
+            b = composer.add_input(self.q)
+            c = composer.mul(1, a, b, 0)
+            composer.constrain_to_constant(
+                c, 0, (-(self.p * self.q)) % R_MOD)
+
+    circ = Factor(31, 41)
+    srs = srs_mod.setup(circ.padded_gates() + 8)
+    pk, vd = circ.compile(srs)
+    for seed in (None, b"smoke-circuit"):
+        proof = circ.gen_proof(srs, pk, b"factors", blinding_seed=seed)
+        pi = circ.public_inputs()
+        if not verify_proof(proof, vd, pi, srs, b"factors"):
+            raise AssertionError(f"Circuit API proof (seed {seed}) does "
+                                 f"not verify")
+        if verify_proof(proof, vd, [(pi[0] + 1) % R_MOD], srs, b"factors"):
+            raise AssertionError("Circuit API proof verifies a wrong PI")
+    say(f"phase 6 Circuit API on the card (n = {circ.padded_gates()}): "
+        f"compile, gen_proof unblinded and blinded, verify_proof accepts "
+        f"them and refuses a wrong public input")
+    counts = kernels.counts()
+    idle = [k for k in PROVE_KERNELS if counts[k] == 0]
+    if idle:
+        raise AssertionError(f"phase 6: launch counters did not rise: "
+                             f"{idle}")
+    say("phase 6 launches: " + json.dumps(counts))
+    return counts
+
+
+def phase_scale(torch, kernels, log_n: int):
+    """Phase 7: the 2^log_n-gate Poseidon circuit through the cached
+    preprocess in a temporary directory (a miss, then a hit with equal
+    keys; the directory is deleted), then one unblinded and one blinded
+    prove on one DevicePK, both verified, with stage seconds, peak
+    device memory and launches per prove.  Returns the path's launch
+    counts (SRS to the last prove)."""
+    import shutil
+    import tempfile
+    from tpu_plonk_torch.pcs import srs_device
+    from tpu_plonk_torch.proof_system.preprocess import (
+        cache_path, preprocess_device_cached)
+    from tpu_plonk_torch.proof_system.engine_device import (
+        prove_device, DevicePK)
+    from tpu_plonk_torch.proof_system.verifier import verify
+
+    total = {k: 0 for k in kernels.KERNELS}
+    stages, peaks, commits = {}, {}, [0]
+
+    def stage(name, fn):
+        kernels.reset_counts()
+        commits[0] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        counts = dict(kernels.counts(), commits=commits[0])
+        for k in total:
+            total[k] += counts[k]
+        say(f"phase 7 {name}: {stages[name]:.3f} s, peak "
+            f"{peaks[name]:.2f} GiB, launches {json.dumps(counts)}")
+        return out, counts
+
+    t0 = time.perf_counter()
+    cs = poseidon_circuit(log_n)
+    n = cs.padded_size()
+    if n != 1 << log_n:
+        raise AssertionError(f"padded size {n} != 2^{log_n}")
+    say(f"phase 7 circuit: {cs.n_gates} gates, padded n = {n}, "
+        f"{time.perf_counter() - t0:.3f} s")
+    table, _ = stage("srs", lambda: srs_device.device_srs_points(n + 8))
+    committer = srs_device.PackedCommitter(table)
+    commit_one = committer.commit
+
+    def counted_commit(coeffs):
+        commits[0] += 1
+        return commit_one(coeffs)
+    committer.commit = counted_commit
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ppcache_")
+    try:
+        (mpk, mvk), _ = stage("preprocess_miss", lambda:
+                              preprocess_device_cached(cs, committer, tmp))
+        size = os.path.getsize(cache_path(cs, tmp))
+        (pk, vk), hit = stage("preprocess_hit", lambda:
+                              preprocess_device_cached(cs, committer, tmp))
+    finally:
+        shutil.rmtree(tmp)
+    if hit["commits"] != 0 or hit["ntt"] != 0:
+        raise AssertionError(f"the cache hit preprocessed again: {hit}")
+    same = (vk.to_bytes() == mvk.to_bytes()
+            and all(torch.equal(pk.selector_coeffs[k], v)
+                    for k, v in mpk.selector_coeffs.items())
+            and all(torch.equal(a, b)
+                    for a, b in zip(pk.sigma_coeffs, mpk.sigma_coeffs)))
+    if not same:
+        raise AssertionError("the cache hit's keys differ from the miss's")
+    say(f"phase 7 preprocess cache: entry of {size / 2**20:.1f} MiB, the "
+        f"hit's tensors and verifier key equal the miss's")
+    del mpk
+    dpk, _ = stage("device_pk", lambda: DevicePK(pk))
+    vsrs = srs_device.VerifierSRS()
+    for name, seed, phases in (("prove", None, 4),
+                               ("prove_zk", PROVE_SEED, 8)):
+        rounds = {}
+        proof, counts = stage(name, lambda: prove_device(
+            cs, pk, committer, dpk=dpk, timings=rounds, blinding_seed=seed))
+        check_prove_launches(name, counts, phases, f"2^{log_n}")
+        if not verify(proof, vk, cs.pi, vsrs):
+            raise AssertionError(f"2^{log_n} proof ({name}) does not verify")
+        say(f"phase 7 {name} (first on the DevicePK) verified, "
+            f"{len(proof.to_bytes())} bytes; rounds " + json.dumps(
+                {k: round(v, 4) for k, v in rounds.items()}))
+    missing = [k for k, v in total.items() if v == 0]
+    if missing:
+        raise AssertionError(f"2^{log_n} path: kernels never launched: "
+                             f"{missing}")
+    say("phase 7 stages (s): " + json.dumps(
+        {k: round(v, 3) for k, v in stages.items()}))
+    say("phase 7 peak device memory (GiB): " + json.dumps(
+        {k: round(v, 2) for k, v in peaks.items()}))
+    return total
 
 
 def main() -> int:
@@ -717,28 +918,21 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the path: {missing}")
     for name, phases in (("prove_steady", 4), ("prove_zk_steady", 8)):
-        steady = counts[name]
-        idle = [k for k in PROVE_KERNELS if steady[k] == 0]
-        if idle:
-            raise AssertionError(f"{name}: launch counters did not rise: "
-                                 f"{idle}")
-        if steady["quotient_phase"] != phases:
-            raise AssertionError(f"{name}: {steady['quotient_phase']} "
-                                 f"quotient launches, not {phases}")
-        if steady["g1_bucket_weight"] != steady["commits"]:
-            raise AssertionError(f"{name}: {steady['g1_bucket_weight']} "
-                                 f"weighting calls for {steady['commits']} "
-                                 f"commits")
-        if steady["g1_add"] != 0:
-            raise AssertionError(f"{name}: g1_add launched "
-                                 f"{steady['g1_add']} times in a prove")
-        say(f"phase 4 launches per {name} 2^18 prove: " + json.dumps(steady))
+        check_prove_launches(name, counts[name], phases, "2^18")
+        say(f"phase 4 launches per {name} 2^18 prove: "
+            + json.dumps(counts[name]))
     for k in ("fp_mont_mul", "g1_add"):
         if counts["srs"][k] == 0:
             raise AssertionError(f"launch counters did not rise in the SRS "
                                  f"stage: {k}")
     say("phase 4 stages (s): " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}))
+
+    entry = phase_entry_points(torch, kernels)
+    scale = phase_scale(torch, kernels, SCALE_LOG_N)
+    for name, m in metrics.items():
+        m["launches_entry_points"] = entry[name]
+        m[f"launches_2^{SCALE_LOG_N}"] = scale[name]
 
     kern = [{k: v for k, v in m.items() if k != "shape"}
             for m in metrics.values()]

@@ -6,6 +6,8 @@ imports no JAX, so it runs on the card's machine with
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -235,3 +237,22 @@ def test_quotient_kernel_matches_plain(cuda):
     got = quotient.quotient_phase_kernel(*args)
     assert kernels.counts()["quotient_phase"] == before + 1
     assert torch.equal(got, quotient.quotient_phase_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,blind", [
+    ("mock_circuit", []), ("mock_circuit_zk", ["--blind", "mock-zk"])])
+def test_cli_prove_matches_reference_fixtures(cuda, tmp_path, name, blind):
+    """`cli prove` on the card writes the MockCircuit artifacts that the
+    reference's CLI wrote (tests/vectors/mock_circuit*), byte for byte,
+    and `cli verify` accepts them."""
+    from tpu_plonk_torch import cli
+    out = str(tmp_path / name)
+    assert cli.main(["prove", "--engine", "device", "--out", out]
+                    + blind) == 0
+    vectors = os.path.join(os.path.dirname(__file__), "vectors")
+    for ext in ("proof", "vk", "pi"):
+        with open(f"{out}.{ext}", "rb") as f, \
+                open(os.path.join(vectors, f"{name}.{ext}"), "rb") as g:
+            assert f.read() == g.read(), ext
+    assert cli.main(["verify", "--out", out]) == 0

@@ -2,8 +2,17 @@
 circuit's proof equals tests/vectors/golden_proof.hex byte for byte, the
 port's preprocess_device gives the reference's tables and verifier key,
 its verifier accepts the proof and rejects a tampered one, and
-proof_system.convert round-trips the reference's ProverKey."""
+proof_system.convert round-trips the reference's ProverKey.
 
+The golden circuit is preprocessed through preprocess_device_cached in a
+temporary directory, a miss (preprocess_device) and then a hit; the
+proof is made from the hit's key.  Commits go through
+tests/torch_host_commit.py (the host MSM over the committer's table):
+the plain CSR walk that the committer runs on the CPU is held against
+the reference's host MSM by tests/test_torch_msm.py and
+test_torch_weighting.py, and on the card by chip_smoke.py."""
+
+import copy
 import os
 
 import numpy as np
@@ -22,10 +31,13 @@ from tpu_plonk_torch.curves import device_g1 as tdg1
 from tpu_plonk_torch.pcs.commit_device import DeviceCommitter
 from tpu_plonk_torch.pcs.srs_device import VerifierSRS
 from tpu_plonk_torch.proof_system import convert
-from tpu_plonk_torch.proof_system.preprocess import preprocess_device
+from tpu_plonk_torch.proof_system.preprocess import (
+    cache_path, circuit_fingerprint, preprocess_device_cached)
 from tpu_plonk_torch.proof_system.engine_device import prove_device
 from tpu_plonk_torch.proof_system.proof import Proof
 from tpu_plonk_torch.proof_system.verifier import verify
+
+from torch_host_commit import host_commits
 
 # the plain versions run many small tensor ops: one intra-op thread per
 # test process keeps parallel test workers from oversubscribing the cores
@@ -51,14 +63,20 @@ def _golden_circuit():
 
 
 @pytest.fixture(scope="module")
-def golden():
+def golden(tmp_path_factory):
     cs = _golden_circuit()
     n = cs.padded_size()
     srs = jsrs.cached_setup(n + 8)
     committer = DeviceCommitter(srs, n + 8, device="cpu")
-    pk, vk = preprocess_device(cs, committer, device="cpu")
-    proof = prove_device(cs, pk, committer, device="cpu")
-    return cs, srs, pk, vk, proof
+    cache = str(tmp_path_factory.mktemp("preprocess_cache"))
+    with host_commits():
+        miss = preprocess_device_cached(cs, committer, cache, device="cpu")
+        pk, vk = preprocess_device_cached(cs, committer, cache,
+                                          device="cpu")
+        proof = prove_device(cs, pk, committer, device="cpu")
+    jpk, jvk = jpre.preprocess(cs, srs, light=True)
+    return {"cs": cs, "srs": srs, "pk": pk, "vk": vk, "proof": proof,
+            "miss": miss, "cache": cache, "jpk": jpk, "jvk": jvk}
 
 
 def _mont_limbs(vals):
@@ -66,13 +84,12 @@ def _mont_limbs(vals):
 
 
 def test_golden_proof_bytes(golden):
-    _, _, _, _, proof = golden
     with open(FIXTURE) as f:
-        assert proof.to_bytes().hex() == f.read().strip()
+        assert golden["proof"].to_bytes().hex() == f.read().strip()
 
 
 def test_verifier_accepts_and_rejects_tampered(golden):
-    cs, _, _, vk, proof = golden
+    cs, vk, proof = golden["cs"], golden["vk"], golden["proof"]
     vsrs = VerifierSRS()
     assert verify(proof, vk, cs.pi, vsrs)
     bad = Proof.from_bytes(proof.to_bytes())
@@ -81,9 +98,8 @@ def test_verifier_accepts_and_rejects_tampered(golden):
 
 
 def test_preprocess_matches_reference(golden):
-    cs, srs, pk, vk, _ = golden
-    jpk, jvk = jpre.preprocess(cs, srs, light=True)
-    assert vk.to_bytes() == jvk.to_bytes()
+    pk, jpk = golden["pk"], golden["jpk"]
+    assert golden["miss"][1].to_bytes() == golden["jvk"].to_bytes()
     sel, sig = convert.prover_key_to_arrays(pk)
     for name, coeffs in jpk.selector_coeffs.items():
         assert np.array_equal(sel[name], _mont_limbs(coeffs)), name
@@ -92,9 +108,40 @@ def test_preprocess_matches_reference(golden):
     assert pk.wire_vars == jpk.wire_vars
 
 
+def test_preprocess_cache_hit_equals_miss(golden):
+    """One entry, named by the circuit's fingerprint; the hit's tensors
+    and key bytes are the miss's."""
+    (mpk, mvk), pk, vk = golden["miss"], golden["pk"], golden["vk"]
+    fp = circuit_fingerprint(golden["cs"])
+    assert os.listdir(golden["cache"]) == [f"torch_ppdev_{fp}.npz"]
+    assert cache_path(golden["cs"], golden["cache"]) == os.path.join(
+        golden["cache"], f"torch_ppdev_{fp}.npz")
+    assert vk.to_bytes() == mvk.to_bytes()
+    assert (pk.n, pk.wire_vars) == (mpk.n, mpk.wire_vars)
+    assert list(pk.selector_coeffs) == list(mpk.selector_coeffs)
+    for name, coeffs in mpk.selector_coeffs.items():
+        assert torch.equal(pk.selector_coeffs[name], coeffs), name
+    assert all(torch.equal(a, b)
+               for a, b in zip(pk.sigma_coeffs, mpk.sigma_coeffs))
+    assert len(pk.sigma_coeffs) == 4
+
+
+def test_circuit_fingerprint_matches_reference(golden):
+    """The reference's hash of the same structure; one selector changes
+    it, a witness value does not."""
+    cs = golden["cs"]
+    fp = circuit_fingerprint(cs)
+    assert fp == jpre.circuit_fingerprint(cs)
+    other = copy.deepcopy(cs)
+    other.q["q_c"][0] = (other.q["q_c"][0] + 1) % R_MOD
+    assert circuit_fingerprint(other) != fp
+    other = copy.deepcopy(cs)
+    other.witness[1] = (other.witness[1] + 1) % R_MOD
+    assert circuit_fingerprint(other) == fp
+
+
 def test_convert_roundtrips_reference_key_and_srs(golden):
-    cs, srs, _, _, _ = golden
-    jpk, _ = jpre.preprocess(cs, srs, light=True)
+    srs, jpk = golden["srs"], golden["jpk"]
     sel = {k: _mont_limbs(v) for k, v in jpk.selector_coeffs.items()}
     sig = [_mont_limbs(v) for v in jpk.sigma_coeffs]
     pk = convert.prover_key_from_arrays(jpk.n, sel, sig, jpk.wire_vars,

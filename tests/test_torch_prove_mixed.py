@@ -2,7 +2,15 @@
 tests/test_engine_device.py (arith, PI, range, logic, fixed- and
 variable-base ECC, copy constraints), fed the reference's own
 ProverKey through proof_system.convert: proof bytes equal the reference
-host prover's (which that file holds equal to its device engine)."""
+host prover's (which that file holds equal to its device engine), as
+tests/vectors/mixed_proof.hex holds them: written once by the
+reference's `proof_system.prover.prove` on this circuit, rather than
+proved again here on every run.
+The port's prove commits through tests/torch_host_commit.py: the plain
+CSR walk is held by tests/test_torch_msm.py and
+test_torch_weighting.py."""
+
+import os
 
 import torch
 
@@ -11,7 +19,6 @@ from tpu_plonk.fields import limbs as jlimbs
 from tpu_plonk.cs import Composer as JComposer
 from tpu_plonk.pcs import srs as jsrs
 from tpu_plonk.proof_system.preprocess import preprocess as jpreprocess
-from tpu_plonk.proof_system.prover import prove as jprove
 
 from tpu_plonk_torch import cs as tcs
 from tpu_plonk_torch import gadgets as tgadgets
@@ -22,6 +29,11 @@ from tpu_plonk_torch.proof_system import convert
 from tpu_plonk_torch.proof_system.engine_device import prove_device
 from tpu_plonk_torch.proof_system.preprocess import VerifierKey
 from tpu_plonk_torch.proof_system.verifier import verify
+
+from torch_host_commit import host_commits
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "vectors",
+                       "mixed_proof.hex")
 
 # the plain versions run many small tensor ops: one intra-op thread per
 # test process keeps parallel test workers from oversubscribing the cores
@@ -61,8 +73,9 @@ def test_mixed_circuit_matches_reference_prover():
     assert isinstance(jcs_circ, JComposer)
     n = jcs_circ.padded_size()
     srs = jsrs.cached_setup(n + 8)
-    jpk, jvk = jpreprocess(jcs_circ, srs)
-    want = jprove(jcs_circ, jpk, srs).to_bytes()
+    jpk, jvk = jpreprocess(jcs_circ, srs, light=True)
+    with open(FIXTURE) as f:
+        want = bytes.fromhex(f.read().strip())
 
     cs = mixed_circuit(tcs, tgadgets, tjubjub)
     pk = convert.prover_key_from_arrays(
@@ -70,7 +83,8 @@ def test_mixed_circuit_matches_reference_prover():
         [_mont_limbs(v) for v in jpk.sigma_coeffs], jpk.wire_vars,
         device="cpu")
     committer = DeviceCommitter(srs, n + 8, device="cpu")
-    proof = prove_device(cs, pk, committer, device="cpu")
+    with host_commits():
+        proof = prove_device(cs, pk, committer, device="cpu")
     assert proof.to_bytes() == want
     vk = VerifierKey.from_bytes(jvk.to_bytes())
     assert verify(proof, vk, cs.pi, VerifierSRS())

@@ -5,13 +5,19 @@ Exercises the 8-phase quotient (8x8 inverse Vandermonde, five chunks),
 the rank-1 phase corrections, the host-tracked high coefficients in
 commits and evaluations, and the split Ruffini of the openings.
 
-The proves commit through the host's wNAF multi-scalar multiplication
-over the SRS points of a DeviceCommitter (`_HostCommitter`): the same
-commitments, several times faster at these sizes than the plain CSR
-walk, which tests/test_torch_prove.py and the card's smoke run hold.
+The proves commit through tests/torch_host_commit.py (the reference's
+host multi-scalar multiplication over a DeviceCommitter's SRS points):
+the same commitments, several times faster at these sizes than the
+plain CSR walk, which tests/test_torch_msm.py, test_torch_weighting.py
+and the card's smoke run hold.
 On the 28-gate circuit one DevicePK serves three proves: a blinded one
 with a second seed (it builds the 8-phase tables), the blinded one the
-reference also makes (it reuses them) and an unblinded one."""
+reference also makes (it reuses them) and an unblinded one.  The
+reference's proofs of that circuit (seed b"dev-zk", and unblinded),
+which tests/test_blinding_device.py also makes, are read from
+tests/vectors/blinding_circuit_proof_zk.hex and blinding_circuit_proof.hex,
+written once by the reference host prover, rather than proved again
+here on every run."""
 
 import os
 
@@ -27,8 +33,6 @@ from tpu_plonk.proof_system.prover import prove as jprove
 
 from tpu_plonk_torch.cs import Composer
 from tpu_plonk_torch.gadgets import AllocatedScalar, range_check
-from tpu_plonk_torch.fields import device as dev
-from tpu_plonk_torch.pcs import msm as tmsm
 from tpu_plonk_torch.pcs.commit_device import BLIND_HIGHS, DeviceCommitter
 from tpu_plonk_torch.pcs.srs_device import VerifierSRS
 from tpu_plonk_torch.proof_system import convert
@@ -38,26 +42,15 @@ from tpu_plonk_torch.proof_system.preprocess import VerifierKey
 from tpu_plonk_torch.proof_system.proof import Proof, BLINDED_PROOF_SIZE
 from tpu_plonk_torch.proof_system.verifier import verify
 
+from torch_host_commit import host_commits
+
 # the plain versions run many small tensor ops: one intra-op thread per
 # test process keeps parallel test workers from oversubscribing the cores
 torch.set_num_threads(1)
 
-FIXTURE = os.path.join(os.path.dirname(__file__), "vectors",
-                       "golden_proof_zk.hex")
+VECTORS = os.path.join(os.path.dirname(__file__), "vectors")
+FIXTURE = os.path.join(VECTORS, "golden_proof_zk.hex")
 GOLDEN_SEED = b"golden-zk"
-
-
-class _HostCommitter(DeviceCommitter):
-    """A DeviceCommitter (same table, same high points) whose commits run
-    the host's wNAF MSM (pcs.msm.msm_small) over the host SRS points."""
-
-    def __init__(self, srs, max_len):
-        super().__init__(srs, max_len, device="cpu")
-        self.host_points = srs.powers_g1[:max_len]
-
-    def commit(self, coeffs_mont):
-        scalars = dev.words_to_ints(coeffs_mont, mont=True, ctx=dev.FR)
-        return tmsm.msm_small(list(zip(self.host_points, scalars)))
 
 
 def _small_circuit(cs):
@@ -105,20 +98,26 @@ def small():
     jcs = _small_circuit(JComposer())
     n = jcs.padded_size()
     srs = jsrs.cached_setup(n + 8)
-    jpk, jvk = jpreprocess(jcs, srs)
-    want = {seed: jprove(jcs, jpk, srs, blinding_seed=seed).to_bytes()
-            for seed in (b"dev-zk", None)}
+    jpk, jvk = jpreprocess(jcs, srs, light=True)
+    want = {}
+    for seed, name in ((b"dev-zk", "blinding_circuit_proof_zk.hex"),
+                       (None, "blinding_circuit_proof.hex")):
+        with open(os.path.join(VECTORS, name)) as f:
+            want[seed] = bytes.fromhex(f.read().strip())
     cs = _small_circuit(Composer())
     pk = _port_key(jpk)
     dpk = DevicePK(pk)
-    host = _HostCommitter(srs, n + 8)
-    got = {"other_seed": prove_device(cs, pk, host, dpk=dpk, device="cpu",
-                                      blinding_seed=b"dev-zk-2")}
-    tables = dpk.phases(8).static
-    got["zk"] = prove_device(cs, pk, host, dpk=dpk, device="cpu",
-                             blinding_seed=b"dev-zk")
-    got["reused"] = tables is not None and dpk.phases(8).static is tables
-    got["plain"] = prove_device(cs, pk, host, dpk=dpk, device="cpu")
+    host = DeviceCommitter(srs, n + 8, device="cpu")
+    with host_commits():
+        got = {"other_seed": prove_device(cs, pk, host, dpk=dpk,
+                                          device="cpu",
+                                          blinding_seed=b"dev-zk-2")}
+        tables = dpk.phases(8).static
+        got["zk"] = prove_device(cs, pk, host, dpk=dpk, device="cpu",
+                                 blinding_seed=b"dev-zk")
+        got["reused"] = (tables is not None
+                         and dpk.phases(8).static is tables)
+        got["plain"] = prove_device(cs, pk, host, dpk=dpk, device="cpu")
     return {"cs": cs, "srs": srs, "pk": pk, "want": want, "got": got,
             "vk": VerifierKey.from_bytes(jvk.to_bytes())}
 
@@ -168,9 +167,10 @@ def test_golden_zk_fixture_reference_and_port():
     jpk, _ = jpreprocess(jcs, srs)
     assert jprove(jcs, jpk, srs, blinding_seed=GOLDEN_SEED).to_bytes().hex() \
         == golden
-    proof = prove_device(_golden_circuit(Composer()), _port_key(jpk),
-                         _HostCommitter(srs, n + 8), device="cpu",
-                         blinding_seed=GOLDEN_SEED)
+    with host_commits():
+        proof = prove_device(_golden_circuit(Composer()), _port_key(jpk),
+                             DeviceCommitter(srs, n + 8, device="cpu"),
+                             device="cpu", blinding_seed=GOLDEN_SEED)
     assert proof.to_bytes().hex() == golden
 
 
