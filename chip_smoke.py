@@ -34,11 +34,23 @@ Phases, one line each (flushed, so a cut run shows how far it got):
      Circuit API (compile, gen_proof, verify_proof) on a small circuit;
   7  the 2^20-gate Poseidon circuit at full width: preprocess through
      preprocess_device_cached in a temporary directory (a miss, then a
-     hit with equal keys; the directory is deleted), then one unblinded
-     and one blinded prove, both verified, with stage seconds, peak
-     device memory and launches per prove checked as in phase 4;
+     hit with equal keys; the directory is kept for phase 8), then one
+     unblinded and one blinded prove, both verified, with stage seconds,
+     peak device memory and launches per prove checked as in phase 4;
+  8  the mesh (tpu_plonk_torch/dist): two ranks, spawned, share the card
+     on gloo (nccl refuses two ranks on one device) and prove the same
+     2^20 circuit through phase 7's cache (a hit) with the SRS table
+     sharded, unblinded and blinded: both ranks' bytes must equal phase
+     7's single-device proofs, which verify; launches per mesh prove
+     checked as in phase 4 on every rank; stage seconds and peak memory
+     per rank.  Then a group of one on nccl: the sharded NTT and commit
+     at 2^20 against the single-device ones;
+  9  sponge_hash_device (batched Poseidon on the field kernels) on 2^16
+     three-element messages against its plain version and the host
+     sponge; a 2^18 prove_device(ckpt=) that fails in round 3 on purpose,
+     then resumes to phase 4's bytes;
   5  (printed last) a `kernels` JSON line (launches on the 2^18 path,
-     and on the paths of phases 6 and 7); then the card line and the
+     and on the paths of phases 6 to 9); then the card line and the
      result line.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -48,9 +60,11 @@ checkout of the repository.  Any failure raises.
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -642,6 +656,7 @@ def phase_prove(torch, kernels):
         "prove_zk_steady": trace_prove(torch, "blinded", lambda: prove_device(
             cs, pk, committer, dpk=dpk, blinding_seed=PROVE_SEED))}
     ntt._transform_kernel = transform_kernel
+    committer.commit = commit_one
     for name, port in traced.items():
         calls = counts[name]["ntt"]
         launches = port.get("ntt", [0.0, 0])
@@ -651,7 +666,9 @@ def phase_prove(torch, kernels):
         if not 0 < launches[1] <= 3 * calls:
             raise AssertionError(f"{name}: {launches[1]} NTT launches for "
                                  f"{calls} calls")
-    return stages, counts, rounds
+    context = {"cs": cs, "pk": pk, "committer": committer, "dpk": dpk,
+               "proof": data["prove_steady"]}
+    return stages, counts, rounds, context
 
 
 def trace_prove(torch, what, prove):
@@ -783,15 +800,14 @@ def phase_entry_points(torch, kernels):
     return counts
 
 
-def phase_scale(torch, kernels, log_n: int):
+def phase_scale(torch, kernels, log_n: int, tmp: str):
     """Phase 7: the 2^log_n-gate Poseidon circuit through the cached
-    preprocess in a temporary directory (a miss, then a hit with equal
-    keys; the directory is deleted), then one unblinded and one blinded
-    prove on one DevicePK, both verified, with stage seconds, peak
-    device memory and launches per prove.  Returns the path's launch
-    counts (SRS to the last prove)."""
-    import shutil
-    import tempfile
+    preprocess in the temporary directory `tmp` (a miss, then a hit with
+    equal keys; phase 8's ranks hit the entry again, and the caller
+    deletes it), then one unblinded and one blinded prove on one
+    DevicePK, both verified, with stage seconds, peak device memory and
+    launches per prove.  Returns the path's launch counts (SRS to the
+    last prove), the proofs' bytes by name and the verifier key."""
     from tpu_plonk_torch.pcs import srs_device
     from tpu_plonk_torch.proof_system.preprocess import (
         cache_path, preprocess_device_cached)
@@ -834,15 +850,11 @@ def phase_scale(torch, kernels, log_n: int):
         commits[0] += 1
         return commit_one(coeffs)
     committer.commit = counted_commit
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_ppcache_")
-    try:
-        (mpk, mvk), _ = stage("preprocess_miss", lambda:
-                              preprocess_device_cached(cs, committer, tmp))
-        size = os.path.getsize(cache_path(cs, tmp))
-        (pk, vk), hit = stage("preprocess_hit", lambda:
-                              preprocess_device_cached(cs, committer, tmp))
-    finally:
-        shutil.rmtree(tmp)
+    (mpk, mvk), _ = stage("preprocess_miss", lambda:
+                          preprocess_device_cached(cs, committer, tmp))
+    size = os.path.getsize(cache_path(cs, tmp))
+    (pk, vk), hit = stage("preprocess_hit", lambda:
+                          preprocess_device_cached(cs, committer, tmp))
     if hit["commits"] != 0 or hit["ntt"] != 0:
         raise AssertionError(f"the cache hit preprocessed again: {hit}")
     same = (vk.to_bytes() == mvk.to_bytes()
@@ -857,11 +869,13 @@ def phase_scale(torch, kernels, log_n: int):
     del mpk
     dpk, _ = stage("device_pk", lambda: DevicePK(pk))
     vsrs = srs_device.VerifierSRS()
+    proofs = {}
     for name, seed, phases in (("prove", None, 4),
                                ("prove_zk", PROVE_SEED, 8)):
         rounds = {}
         proof, counts = stage(name, lambda: prove_device(
             cs, pk, committer, dpk=dpk, timings=rounds, blinding_seed=seed))
+        proofs[name] = proof.to_bytes()
         check_prove_launches(name, counts, phases, f"2^{log_n}")
         if not verify(proof, vk, cs.pi, vsrs):
             raise AssertionError(f"2^{log_n} proof ({name}) does not verify")
@@ -876,7 +890,264 @@ def phase_scale(torch, kernels, log_n: int):
         {k: round(v, 3) for k, v in stages.items()}))
     say("phase 7 peak device memory (GiB): " + json.dumps(
         {k: round(v, 2) for k, v in peaks.items()}))
-    return total
+    return total, proofs, vk, cs.pi
+
+
+def _rank_stage(torch, kernels, out, name, fn):
+    """One stage of a rank: seconds, peak device memory (GiB) and launch
+    counts into out[...][name]."""
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    value = fn()
+    torch.cuda.synchronize()
+    out["stages"][name] = time.perf_counter() - t0
+    out["peaks"][name] = torch.cuda.max_memory_allocated() / 2**30
+    out["launches"][name] = kernels.counts()
+    return value
+
+
+def mesh_prove_rank(mesh, log_n: int, cache_dir: str):
+    """Phase 8, one rank of the mesh: the 2^log_n Poseidon circuit, its SRS
+    table on the card (this rank keeps its rows), the preprocess cache
+    phase 7 wrote (must hit), then one unblinded and one blinded mesh
+    prove.  Returns the proofs' bytes and each stage's seconds, peak
+    memory, launches and commits."""
+    import torch
+    from tpu_plonk_torch import kernels
+    from tpu_plonk_torch.pcs import srs_device
+    from tpu_plonk_torch.dist.msm_sharded import ShardedCommitter
+    from tpu_plonk_torch.proof_system.preprocess import (
+        preprocess_device_cached)
+    from tpu_plonk_torch.proof_system.engine_device import (
+        prove_device, DevicePK)
+
+    out = {"stages": {}, "peaks": {}, "launches": {}, "rounds": {},
+           "proofs": {}, "rank": mesh.rank, "size": mesh.size,
+           "backend": mesh.backend, "device": str(mesh.device)}
+    commits = [0]
+
+    def stage(name, fn):
+        commits[0] = 0
+        value = _rank_stage(torch, kernels, out, name, fn)
+        out["launches"][name]["commits"] = commits[0]
+        return value
+
+    cs = stage("circuit", lambda: poseidon_circuit(log_n))
+    n = cs.padded_size()
+    com = stage("srs", lambda: ShardedCommitter.from_table(
+        mesh, srs_device.device_srs_points(n + 8)))
+    commit_one = com.commit
+
+    def counted_commit(coeffs):
+        commits[0] += 1
+        return commit_one(coeffs)
+    com.commit = counted_commit
+    pk, _ = stage("preprocess_hit", lambda: preprocess_device_cached(
+        cs, com, cache_dir))
+    hit = out["launches"]["preprocess_hit"]
+    if hit["commits"] or hit["ntt"]:
+        raise AssertionError(f"rank {mesh.rank}: the preprocess cache "
+                             f"missed: {hit}")
+    dpk = stage("device_pk", lambda: DevicePK(pk))
+    for name, seed in (("mesh_prove", None), ("mesh_prove_zk", PROVE_SEED)):
+        rounds = out["rounds"][name] = {}
+        out["proofs"][name] = stage(name, lambda: prove_device(
+            cs, pk, com, dpk=dpk, mesh=mesh, timings=rounds,
+            blinding_seed=seed)).to_bytes()
+    return out
+
+
+def nccl_rank(mesh, log_n: int):
+    """Phase 8, a group of one on nccl: the sharded NTT (batch 2: forward,
+    inverse, coset-scaled) and a sharded commit of random 2^log_n
+    coefficients against the single-device transform and commit."""
+    import numpy as np
+    import torch
+    from tpu_plonk_torch import kernels
+    from tpu_plonk_torch.poly import ntt
+    from tpu_plonk_torch.pcs import srs_device
+    from tpu_plonk_torch.dist.msm_sharded import ShardedCommitter
+    from tpu_plonk_torch.dist.ntt_sharded import ntt_replicated
+
+    out = {"stages": {}, "peaks": {}, "launches": {}, "equal": {},
+           "backend": mesh.backend, "size": mesh.size}
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n)
+    raw = rng.integers(0, 1 << 32, size=(2, n, 8), dtype=np.uint64)
+    raw[..., 7] &= (1 << 29) - 1
+    x = torch.from_numpy(raw.astype(np.uint32).view(np.int32)).to(
+        mesh.device)
+    for inverse, scale in ((False, 1), (True, 1), (False, 7)):
+        key = f"ntt_inverse={inverse}_scale={scale}"
+        got = _rank_stage(torch, kernels, out, f"sharded_{key}",
+                          lambda: ntt_replicated(mesh, x, log_n, inverse,
+                                                 scale))
+        want = _rank_stage(torch, kernels, out, f"single_{key}",
+                           lambda: ntt.ntt_many(x, log_n, inverse, scale))
+        out["equal"][key] = bool(torch.equal(got, want))
+    table = srs_device.device_srs_points(n)
+    coeffs = x[0]             # canonical words below r: Montgomery values
+    sharded = ShardedCommitter.from_table(mesh, table)
+    single = srs_device.PackedCommitter(table)
+    got = _rank_stage(torch, kernels, out, "sharded_commit",
+                      lambda: sharded.commit(coeffs))
+    want = _rank_stage(torch, kernels, out, "single_commit",
+                       lambda: single.commit(coeffs))
+    out["equal"]["commit"] = got == want
+    return out
+
+
+def phase_mesh(torch, kernels, log_n: int, cache_dir: str, single: dict,
+               vk, pi):
+    """Phase 8: the mesh.  Two ranks share the card on gloo (nccl refuses
+    two ranks on one device) and prove the 2^log_n Poseidon circuit,
+    unblinded and blinded: both ranks' bytes must equal each other and
+    phase 7's single-device proofs, and verify.  Then a group of one on
+    nccl: the sharded NTT and commit at 2^log_n against the
+    single-device ones.  Returns rank 0's launches per mesh prove and on
+    the whole mesh path."""
+    from tpu_plonk_torch.dist import multihost
+    from tpu_plonk_torch.pcs import srs_device
+    from tpu_plonk_torch.proof_system.proof import Proof
+    from tpu_plonk_torch.proof_system.verifier import verify
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = multihost.launch(mesh_prove_rank, 2, (log_n, cache_dir),
+                             backend="gloo", store_dir=cache_dir,
+                             timeout=600)
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        say(f"phase 8 rank {r['rank']} of {r['size']} ({r['backend']}, "
+            f"{r['device']}, one card shared by both ranks): stages (s) "
+            + json.dumps({k: round(v, 3) for k, v in r["stages"].items()})
+            + "; peak GiB " + json.dumps(
+                {k: round(v, 2) for k, v in r["peaks"].items()})
+            + "; rounds (s) " + json.dumps(
+                {k: {q: round(v, 4) for q, v in d.items()}
+                 for k, d in r["rounds"].items()}))
+    for name, ref, phases in (("mesh_prove", "prove", 4),
+                              ("mesh_prove_zk", "prove_zk", 8)):
+        got = {r["proofs"][name] for r in ranks}
+        if got != {single[ref]}:
+            raise AssertionError(f"phase 8 {name}: the ranks' proofs differ "
+                                 f"from each other or from phase 7's")
+        for r in ranks:
+            check_prove_launches(name, r["launches"][name], phases,
+                                 f"2^{log_n} mesh rank {r['rank']}")
+        if not verify(Proof.from_bytes(single[ref]), vk, pi,
+                      srs_device.VerifierSRS()):
+            raise AssertionError(f"phase 8 {name}: the proof does not "
+                                 f"verify")
+        say(f"phase 8 {name}: both ranks' {len(single[ref])} bytes equal "
+            f"phase 7's single-device proof, verified; launches per rank "
+            + json.dumps(ranks[0]["launches"][name]))
+    say(f"phase 8 two-rank launch: {wall:.1f} s wall, spawn and CUDA start "
+        f"included")
+    t0 = time.perf_counter()
+    (one,) = multihost.launch(nccl_rank, 1, (log_n,), backend="nccl",
+                              store_dir=cache_dir, timeout=300)
+    wall1 = time.perf_counter() - t0
+    if one["backend"] != "nccl" or not all(one["equal"].values()):
+        raise AssertionError(f"phase 8 nccl: {one['equal']}")
+    say(f"phase 8 nccl group of one at 2^{log_n}: sharded equals single "
+        + json.dumps(one["equal"]) + "; seconds " + json.dumps(
+            {k: round(v, 4) for k, v in one["stages"].items()})
+        + f"; {wall1:.1f} s wall")
+    path = ("srs", "preprocess_hit", "device_pk", "mesh_prove",
+            "mesh_prove_zk")
+    total = {k: sum(ranks[0]["launches"][s][k] for s in path)
+             for k in kernels.KERNELS}
+    missing = [k for k in PROVE_KERNELS if total[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 8: kernels never launched on the mesh "
+                             f"path: {missing}")
+    return {"mesh_prove": ranks[0]["launches"]["mesh_prove"],
+            "mesh_prove_zk": ranks[0]["launches"]["mesh_prove_zk"],
+            "path": total}
+
+
+def phase_poseidon_checkpoint(torch, kernels, ctx: dict):
+    """Phase 9: sponge_hash_device on 2^16 three-element messages against
+    its plain version (whole batch) and the host sponge (64 of them);
+    then a 2^18 checkpointed prove that fails in round 3 on purpose and
+    resumes, whose bytes must be phase 4's.  Returns the launches of
+    the sponge and of the resumed prove."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from tpu_plonk_torch.params import R_MOD
+    from tpu_plonk_torch.gadgets import poseidon, poseidon_device
+    from tpu_plonk_torch.proof_system import engine_device
+    from tpu_plonk_torch.utils.checkpoint import RoundCheckpoint
+
+    rng = np.random.default_rng(16)
+    vals = [int.from_bytes(rng.bytes(32), "little") % R_MOD
+            for _ in range(3 << 16)]
+    msgs = [vals[i:i + 3] for i in range(0, len(vals), 3)]
+    out = {"stages": {}, "peaks": {}, "launches": {}}
+    got = _rank_stage(torch, kernels, out, "sponge",
+                      lambda: poseidon_device.sponge_hash_device(msgs))
+    plain = _rank_stage(torch, kernels, out, "sponge_plain",
+                        lambda: poseidon_device.sponge_hash_plain(msgs,
+                                                                  "cuda"))
+    if got != plain:
+        raise AssertionError("phase 9: the sponge's kernels and its plain "
+                             "version differ")
+    sample = rng.choice(len(msgs), 64, replace=False)
+    if any(got[i] != poseidon.sponge_hash(msgs[i]) for i in sample):
+        raise AssertionError("phase 9: the sponge differs from the host's")
+    sponge = out["launches"]["sponge"]
+    say(f"phase 9 sponge_hash_device, 2^16 messages of 3: "
+        f"{out['stages']['sponge']:.3f} s (plain version "
+        f"{out['stages']['sponge_plain']:.3f} s), equal to the plain "
+        f"version on all and to the host sponge on 64; launches "
+        f"{json.dumps(sponge)}")
+
+    def broken(*args):
+        raise RuntimeError("round 3 fails on purpose")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    path = os.path.join(tmp, "prove.ckpt")
+    quotient_dev = engine_device.quotient_phase_dev
+    try:
+        engine_device.quotient_phase_dev = broken
+        try:
+            engine_device.prove_device(ctx["cs"], ctx["pk"], ctx["committer"],
+                                       dpk=ctx["dpk"],
+                                       ckpt=RoundCheckpoint(path))
+            raise AssertionError("phase 9: the broken prove did not fail")
+        except RuntimeError as e:
+            if "on purpose" not in str(e):
+                raise
+        finally:
+            engine_device.quotient_phase_dev = quotient_dev
+        saved = RoundCheckpoint(path).completed()
+        if saved != ["r1", "r2"]:
+            raise AssertionError(f"phase 9: rounds saved {saved}")
+        ck = RoundCheckpoint(path)
+        proof = _rank_stage(torch, kernels, out, "resumed", lambda:
+                            engine_device.prove_device(
+                                ctx["cs"], ctx["pk"], ctx["committer"],
+                                dpk=ctx["dpk"], ckpt=ck))
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp)
+    if proof.to_bytes() != ctx["proof"]:
+        raise AssertionError("phase 9: the resumed proof differs from "
+                             "phase 4's")
+    resumed = out["launches"]["resumed"]
+    if resumed["g1_bucket_weight"] != 6:
+        raise AssertionError(f"phase 9: the resumed prove committed "
+                             f"{resumed['g1_bucket_weight']} times, not 6 "
+                             f"(rounds 3 and 5)")
+    say(f"phase 9 checkpointed 2^{LOG_N} prove: failed in round 3 on "
+        f"purpose with {saved} saved, resumed in "
+        f"{out['stages']['resumed']:.3f} s to phase 4's bytes (checkpoint "
+        f"{size / 2**20:.1f} MiB); launches {json.dumps(resumed)}")
+    return {"sponge": sponge, "resumed": resumed}
 
 
 def main() -> int:
@@ -907,7 +1178,7 @@ def main() -> int:
 
     metrics = phase_kernels(torch, np, dev, kernels)
     phase_proof_bytes(torch, dev)
-    stages, counts, rounds = phase_prove(torch, kernels)
+    stages, counts, rounds, ctx = phase_prove(torch, kernels)
 
     main_path = ("srs", "preprocess", "device_pk", "prove_first",
                  "prove_steady", "prove_zk_first", "prove_zk_steady")
@@ -929,10 +1200,23 @@ def main() -> int:
         {k: round(v, 3) for k, v in stages.items()}))
 
     entry = phase_entry_points(torch, kernels)
-    scale = phase_scale(torch, kernels, SCALE_LOG_N)
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_ppcache_")
+    try:
+        scale, single, vk, pi = phase_scale(torch, kernels, SCALE_LOG_N,
+                                            cache_dir)
+        mesh = phase_mesh(torch, kernels, SCALE_LOG_N, cache_dir, single,
+                          vk, pi)
+    finally:
+        shutil.rmtree(cache_dir)
+    later = phase_poseidon_checkpoint(torch, kernels, ctx)
     for name, m in metrics.items():
         m["launches_entry_points"] = entry[name]
         m[f"launches_2^{SCALE_LOG_N}"] = scale[name]
+        m[f"launches_mesh_2^{SCALE_LOG_N}_path_rank0"] = mesh["path"][name]
+        m["launches_per_mesh_prove"] = mesh["mesh_prove"][name]
+        m["launches_per_mesh_prove_zk"] = mesh["mesh_prove_zk"][name]
+        m["launches_sponge_2^16"] = later["sponge"][name]
+        m["launches_resumed_prove"] = later["resumed"][name]
 
     kern = [{k: v for k, v in m.items() if k != "shape"}
             for m in metrics.values()]

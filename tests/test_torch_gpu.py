@@ -256,3 +256,60 @@ def test_cli_prove_matches_reference_fixtures(cuda, tmp_path, name, blind):
                 open(os.path.join(vectors, f"{name}.{ext}"), "rb") as g:
             assert f.read() == g.read(), ext
     assert cli.main(["verify", "--out", out]) == 0
+
+
+def _sharded_vs_single(mesh, log_n, batch):
+    """One nccl rank: the sharded four-step against ntt_many on the same
+    words, forward, inverse and scaled; returns the cases that differ."""
+    x = _rand_words(batch << log_n, log_n, mesh.device).reshape(
+        batch, 1 << log_n, 8)
+    from tpu_plonk_torch.dist.ntt_sharded import ntt_replicated
+    bad = []
+    for inverse, scale in ((False, 1), (True, 1), (False, 7), (True, 11)):
+        if not torch.equal(ntt_replicated(mesh, x, log_n, inverse, scale),
+                           ntt.ntt_many(x, log_n, inverse, scale)):
+            bad.append((log_n, inverse, scale))
+    return bad
+
+
+@pytest.mark.gpu
+def test_sharded_ntt_nccl_matches_ntt_many(cuda, tmp_path):
+    """The four-step on an nccl group of one (its all_to_all and
+    all_gather are real nccl calls) equals the single-device kernel."""
+    from tpu_plonk_torch.dist import multihost
+    kernels.library()
+    for log_n, batch in ((12, 3), (18, 2)):
+        assert multihost.launch(_sharded_vs_single, 1, (log_n, batch),
+                                backend="nccl", store_dir=str(tmp_path),
+                                timeout=300) == [[]]
+
+
+@pytest.mark.gpu
+def test_dryrun_multichip_two_ranks_one_card(cuda):
+    """graft_entry's dryrun on two gloo ranks sharing the card: sharded
+    NTT and commit against host oracles, the mesh proof equal to the
+    single-device one and verified."""
+    from tpu_plonk_torch import graft_entry
+    graft_entry.dryrun_multichip(2)
+    fn, (x,) = graft_entry.entry()
+    assert x.is_cuda and torch.equal(fn(x), x)
+
+
+@pytest.mark.gpu
+def test_poseidon_kernels_match_plain(cuda):
+    """The batched permutation and sponge through the field kernels equal
+    their plain versions on the card (one absorption and three)."""
+    from tpu_plonk_torch.gadgets import poseidon_device as pd
+    rng = np.random.default_rng(5)
+    vals = [int.from_bytes(rng.bytes(32), "little") % dev.FR.modulus
+            for _ in range(5 * 1000)]
+    st = dev.ints_to_words(vals, dev.FR, cuda, mont=True).reshape(1000, 5, 8)
+    before = kernels.counts()
+    assert torch.equal(pd.permute_device(st), pd.permute_plain(st))
+    after = kernels.counts()
+    assert after["fr_mont_mul"] > before["fr_mont_mul"]
+    assert after["fr_add_sub"] > before["fr_add_sub"]
+    for ln in (3, 9):
+        msgs = [vals[i:i + ln] for i in range(0, 64 * ln, ln)]
+        assert pd.sponge_hash_device(msgs) == pd.sponge_hash_plain(msgs,
+                                                                   cuda)

@@ -25,8 +25,6 @@ from tpu_plonk.pcs import srs as jsrs
 from tpu_plonk.pcs import msm_csr as jmsm_csr
 from tpu_plonk.proof_system import preprocess as jpre
 
-from tpu_plonk_torch.cs import Composer
-from tpu_plonk_torch.gadgets import AllocatedScalar, range_check
 from tpu_plonk_torch.curves import device_g1 as tdg1
 from tpu_plonk_torch.pcs.commit_device import DeviceCommitter
 from tpu_plonk_torch.pcs.srs_device import VerifierSRS
@@ -37,6 +35,7 @@ from tpu_plonk_torch.proof_system.engine_device import prove_device
 from tpu_plonk_torch.proof_system.proof import Proof
 from tpu_plonk_torch.proof_system.verifier import verify
 
+from torch_dist_ranks import golden_circuit
 from torch_host_commit import host_commits
 
 # the plain versions run many small tensor ops: one intra-op thread per
@@ -47,24 +46,9 @@ FIXTURE = os.path.join(os.path.dirname(__file__), "vectors",
                        "golden_proof.hex")
 
 
-def _golden_circuit():
-    """tests/test_golden_proof.py's circuit, on the port's composer."""
-    cs = Composer()
-    a = cs.add_input(1234)
-    b = cs.add_input(5678)
-    c = cs.mul(1, a, b, 7)
-    cs.constrain_to_constant(c, 0, (-(1234 * 5678 + 7)) % R_MOD)
-    w = AllocatedScalar.allocate(cs, 4242)
-    range_check(cs, 1000, 10000, w)
-    x = cs.add_input(0b1010)
-    y = cs.add_input(0b0111)
-    cs.xor_gate(x, y, 4)
-    return cs
-
-
 @pytest.fixture(scope="module")
 def golden(tmp_path_factory):
-    cs = _golden_circuit()
+    cs = golden_circuit()
     n = cs.padded_size()
     srs = jsrs.cached_setup(n + 8)
     committer = DeviceCommitter(srs, n + 8, device="cpu")

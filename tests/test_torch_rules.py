@@ -40,8 +40,10 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_entry_points_default_to_the_card(tmp_path):
-    from tpu_plonk_torch import cli, kernels
+    from tpu_plonk_torch import cli, graft_entry, kernels
     from tpu_plonk_torch.circuits import Circuit
+    from tpu_plonk_torch.dist import mesh, multihost
+    from tpu_plonk_torch.gadgets import poseidon_device
     from tpu_plonk_torch.pcs import srs_device
     from tpu_plonk_torch.pcs.commit_device import DeviceCommitter
     from tpu_plonk_torch.proof_system.engine_device import prove_device
@@ -70,6 +72,13 @@ def test_entry_points_default_to_the_card(tmp_path):
             composer.add_input(1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _Circuit().compile(_SRS())
+    for fn in (mesh.make_mesh, graft_entry.entry,
+               lambda: graft_entry.dryrun_multichip(2),
+               lambda: poseidon_device.sponge_hash_device([[1]]),
+               lambda: multihost.launch(print, 2, backend="gloo",
+                                        store_dir=str(tmp_path))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
     out = str(tmp_path / "p")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["prove", "--out", out])

@@ -3,7 +3,8 @@
 
 Commands:
   demo        build the MockCircuit, prove, verify, print per-stage
-              metrics JSON (exit 0 iff verified)
+              metrics JSON (exit 0 iff verified); with --checkpoint the
+              prove's rounds are memoized in that file and resumed
   prove       prove the MockCircuit and write <out>.proof/.vk/.pi
               artifacts
   verify      load <out>.proof/.vk/.pi and verify (validating codecs —
@@ -33,6 +34,7 @@ from .proof_system.preprocess import (
     VerifierKey, preprocess_device, preprocess_device_cached)
 from .proof_system.proof import Proof
 from .proof_system.verifier import verify
+from .utils.checkpoint import RoundCheckpoint
 from .utils.config import parse_args
 from .utils.metrics import Metrics
 
@@ -66,9 +68,14 @@ def cmd_demo(cfg):
         committer = _committer(n, cfg)
     with met.timed("preprocess"):
         pk, vk = preprocess_device(composer, committer, cfg.device)
+    ckpt = None
+    if cfg.checkpoint:
+        ckpt = RoundCheckpoint(cfg.checkpoint)
+        if ckpt.completed():
+            met.count("resumed_rounds", len(ckpt.completed()))
     with met.timed("prove"):
         proof = prove_device(composer, pk, committer, device=cfg.device,
-                             blinding_seed=_seed(cfg))
+                             blinding_seed=_seed(cfg), ckpt=ckpt)
     with met.timed("verify"):
         ok = verify(proof, vk, composer.pi, srs_device.VerifierSRS())
     met.count("proof_bytes", len(proof.to_bytes()))

@@ -1,7 +1,8 @@
-"""Device prover engine (mirrors tpu_plonk/proof_system/engine_device.py,
-single device, unblinded or blinded): the polynomial rounds on torch
-tensors, the transcript, proof assembly and the linearization scalars on
-the host.  Proofs are byte-identical to the reference's host prover.
+"""Device prover engine (mirrors tpu_plonk/proof_system/engine_device.py:
+one device or a mesh of ranks, unblinded or blinded, with optional round
+checkpoints): the polynomial rounds on torch tensors, the transcript,
+proof assembly and the linearization scalars on the host.  Proofs are
+byte-identical to the reference's host prover.
 
 Device values are (..., 8) int32 Montgomery words (fields/device.py).
 Every `mm`/`ad`/`sb` is the Fr multiply / add-sub kernel on the card,
@@ -28,9 +29,11 @@ from ..poly import ntt as nttmod
 from ..poly.domain import Domain
 from ..cs.composer import SELECTOR_NAMES
 from ..curves import g1
+from ..dist import ntt_sharded
 from ..pcs import msm as hostmsm
 from ..transcript import Transcript
 from ..transcript import labels as L
+from ..utils import checkpoint
 from . import prover as host
 from . import quotient
 from .proof import Proof
@@ -388,9 +391,9 @@ def _timed(out, name: str, device):
 
 def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
                  timings: dict = None, device=None,
-                 blinding_seed: bytes = None):
-    """Single-device prover; mirrors the reference host prover round for
-    round and produces byte-identical proofs.  `device` must match the
+                 blinding_seed: bytes = None, mesh=None, ckpt=None):
+    """Device prover; mirrors the reference host prover round for round
+    and produces byte-identical proofs.  `device` must match the
     committer's (cuda unless named); `timings`, if given, receives each
     round's seconds.
 
@@ -401,8 +404,27 @@ def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
     commitment corrections (_blind_commit), as rank-1 corrections on the
     quotient's phase cosets (x^(n+k) = u_i x^k there) and as host
     evaluation corrections.  deg t = 4n + 6 needs the 8n coset: eight
-    phases, an 8x8 inverse Vandermonde and five chunks."""
+    phases, an 8x8 inverse Vandermonde and five chunks.
+
+    With `mesh` (dist/mesh.py; every rank of it calls prove_device
+    together, on the same inputs), every wire, z, PI and quotient
+    transform runs as the sharded four-step (dist/ntt_sharded.py), each
+    rank transforming its row block, and `committer` must be a
+    ShardedCommitter over the same mesh; the other rounds, the transcript
+    and the DevicePK tables stay replicated on each rank, as in the
+    reference's multi-controller path.  The proof is the single-device
+    one, on every rank.
+
+    With `ckpt` (utils/checkpoint.RoundCheckpoint), each round's outputs
+    are saved as host data once computed, and a prove that finds them
+    saved loads them instead of computing the round again: a prove that
+    failed resumes at its last round boundary, with the same bytes (the
+    transcript replays from the saved commitments).  On a mesh, give
+    each rank a file of its own."""
     dv = check_committer(committer, device)
+    if mesh is not None and getattr(committer, "mesh", None) != mesh:
+        raise ValueError("a mesh prove commits through a ShardedCommitter "
+                         "over the same mesh")
     if label is None:
         label = L.PROTOCOL
     if dpk is None:
@@ -420,6 +442,27 @@ def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
     # host-tracked high coefficients: p = p_low + sum_k h_k X^(n+k)
     wire_high = {w: () for w in "abcd"}
     z_high = ()
+    if blinds is not None:
+        # (b0 X + b1) Z_H per wire: -b0, -b1 at rows 0, 1; the highs
+        # b0, b1 at X^n, X^(n+1) stay on the host.  z: three.
+        for j, w in enumerate("abcd"):
+            wire_high[w] = tuple(blinds[2 * j:2 * j + 2])
+        z_high = tuple(blinds[8:11])
+
+    def transform(xs, inverse=False, scale=1):
+        """(B, n, 8) on every rank -> their (i)NTTs (ntt_many semantics):
+        one batched kernel call, or on a mesh the sharded four-step."""
+        if mesh is None:
+            return nttmod.ntt_many(xs, log_n, inverse, scale)
+        return ntt_sharded.ntt_replicated(mesh, xs, log_n, inverse, scale)
+
+    def memo(key, fn):
+        """fn() (a round's outputs), or with a checkpoint the outputs it
+        saved, back on the device."""
+        if ckpt is None:
+            return fn()
+        return checkpoint.to_device(
+            ckpt.memo(key, lambda: checkpoint.to_host(fn())), dv)
 
     t = Transcript(label)
     t.circuit_domain_sep(n)
@@ -428,23 +471,25 @@ def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
     with _timed(timings, "r1_wires", dv):
         witness_mont = to_dev(composer.witness, dv)
         wires_H = wire_values_dev(dpk, witness_mont)
-        wire_all = nttmod.ntt_many(
-            torch.stack([wires_H[w] for w in "abcd"]), log_n, inverse=True)
-        if blinds is not None:
-            # (b0 X + b1) Z_H per wire: -b0, -b1 at rows 0, 1; the highs
-            # b0, b1 at X^n, X^(n+1) stay on the host
-            wire_all[:, :2] = sb(wire_all[:, :2],
-                                 to_dev(blinds[:8], dv).reshape(4, 2, -1))
-            for j, w in enumerate("abcd"):
-                wire_high[w] = tuple(blinds[2 * j:2 * j + 2])
+
+        def round1():
+            wire_all = transform(torch.stack([wires_H[w] for w in "abcd"]),
+                                 inverse=True)
+            if blinds is not None:
+                wire_all[:, :2] = sb(wire_all[:, :2],
+                                     to_dev(blinds[:8], dv).reshape(4, 2, -1))
+            cms = commit_many(list(wire_all))
+            if blinds is not None:
+                cms = [_blind_commit(cm, wire_high[w], high_pts)
+                       for w, cm in zip("abcd", cms)]
+            return wire_all, cms
+
+        wire_all, wire_comms = memo("r1", round1)
         wire_coeffs = dict(zip("abcd", wire_all))
         comm = {}
-        wire_comms = commit_many([wire_coeffs[w] for w in "abcd"])
-        for (lbl, name), w, cm in zip(
+        for (lbl, name), cm in zip(
                 ((L.W_L, "w_l"), (L.W_R, "w_r"),
-                 (L.W_O, "w_o"), (L.W_4, "w_4")), "abcd", wire_comms):
-            if blinds is not None:
-                cm = _blind_commit(cm, wire_high[w], high_pts)
+                 (L.W_O, "w_o"), (L.W_4, "w_4")), wire_comms):
             comm[name] = cm
             t.append_commitment(lbl, cm)
     beta_i = t.challenge_scalar(L.BETA)
@@ -455,15 +500,18 @@ def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
 
     # ---------------- round 2: grand product ----------------
     with _timed(timings, "r2_grand_product", dv):
-        z_H, _ = grand_product_dev(wires_H, dpk.sigma_H, dpk.domain_elems,
-                                   beta, gamma)
-        z_coeffs = nttmod.intt(z_H, log_n)
-        if blinds is not None:
-            z_high = tuple(blinds[8:11])
-            z_coeffs[:3] = sb(z_coeffs[:3], to_dev(z_high, dv))
-        comm["z"] = committer.commit(z_coeffs)
-        if blinds is not None:
-            comm["z"] = _blind_commit(comm["z"], z_high, high_pts)
+        def round2():
+            z_H, _ = grand_product_dev(wires_H, dpk.sigma_H,
+                                       dpk.domain_elems, beta, gamma)
+            z_coeffs = transform(z_H[None], inverse=True)[0]
+            if blinds is not None:
+                z_coeffs[:3] = sb(z_coeffs[:3], to_dev(z_high, dv))
+            cm = committer.commit(z_coeffs)
+            if blinds is not None:
+                cm = _blind_commit(cm, z_high, high_pts)
+            return z_coeffs, cm
+
+        z_coeffs, comm["z"] = memo("r2", round2)
     t.append_commitment(L.Z, comm["z"])
     alpha_i = t.challenge_scalar(L.ALPHA)
     ch_i = {
@@ -478,49 +526,52 @@ def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
     ch["gamma"] = gamma
 
     # ---------------- round 3: quotient (interleaved phases) ---------
+    n_phases, n_chunks = (4, 4) if blinds is None else (8, 5)
     with _timed(timings, "r3_quotient", dv):
-        n_phases, n_chunks = (4, 4) if blinds is None else (8, 5)
-        ph = dpk.phases(n_phases)
-        pi_vec = [0] * n
-        for gi, val in composer.pi.items():
-            pi_vec[gi] = val
-        pi_coeffs = nttmod.intt(to_dev(pi_vec, dv), log_n)
-        dyn = torch.stack([wire_coeffs[w] for w in "abcd"]
-                          + [z_coeffs, pi_coeffs])
-        static = dpk.static_phases(n_phases)
-        t_phase = []
-        for i in range(n_phases):
-            out = nttmod.ntt_many(dyn, log_n, scale=ph.s[i])
-            wire_ph = dict(zip("abcd", out[:4]))
-            z_ph = out[4]
-            sel_ph, sigma_ph = static[i]
-            xpts, l1_vec = dpk.phase_xpts_l1(i, n_phases)
-            if blinds is not None:
-                # x^(n+k) = u_i x^k on coset i: each high part is a
-                # constant-coefficient polynomial in x there
-                u = ph.u[i]
-                for w in "abcd":
-                    b0, b1 = wire_high[w]
-                    wire_ph[w] = ad(wire_ph[w], ad(
-                        cst(u * b0 % R_MOD, xpts),
-                        mm(cst(u * b1 % R_MOD, xpts), xpts)))
-                zc = ad(cst(u * z_high[0] % R_MOD, xpts),
-                        mm(cst(u * z_high[1] % R_MOD, xpts), xpts))
-                zc = ad(zc, mm(cst(u * z_high[2] % R_MOD, xpts),
-                               mm(xpts, xpts)))
-                z_ph = ad(z_ph, zc)
-            t_phase.append(quotient_phase_dev(
-                wire_ph, z_ph, out[5], sel_ph, sigma_ph, xpts, alpha, ch,
-                to_dev_scalar(ph.zh_inv[i], dv), l1_vec))
-        t_inv = nttmod.ntt_many(torch.stack(t_phase), log_n, inverse=True)
-        inv_pows = torch.stack([dpk.phase_pows_inv(i, n_phases)
-                                for i in range(n_phases)])
-        c_phase = list(mm(t_inv, inv_pows))
-        # t_{mn+k} from the phase coefficient streams: inverse
-        # Vandermonde in u_i = s_i^n (blinded: only chunks 0..4 are
-        # nonzero, deg t = 4n + 6)
-        chunks = lincomb_many(ph.vinv[:n_chunks], c_phase)
-        chunk_comms = commit_many(chunks)
+        def round3():
+            ph = dpk.phases(n_phases)
+            pi_vec = [0] * n
+            for gi, val in composer.pi.items():
+                pi_vec[gi] = val
+            pi_coeffs = transform(to_dev(pi_vec, dv)[None], inverse=True)[0]
+            dyn = torch.stack([wire_coeffs[w] for w in "abcd"]
+                              + [z_coeffs, pi_coeffs])
+            static = dpk.static_phases(n_phases)
+            t_phase = []
+            for i in range(n_phases):
+                out = transform(dyn, scale=ph.s[i])
+                wire_ph = dict(zip("abcd", out[:4]))
+                z_ph = out[4]
+                sel_ph, sigma_ph = static[i]
+                xpts, l1_vec = dpk.phase_xpts_l1(i, n_phases)
+                if blinds is not None:
+                    # x^(n+k) = u_i x^k on coset i: each high part is a
+                    # constant-coefficient polynomial in x there
+                    u = ph.u[i]
+                    for w in "abcd":
+                        b0, b1 = wire_high[w]
+                        wire_ph[w] = ad(wire_ph[w], ad(
+                            cst(u * b0 % R_MOD, xpts),
+                            mm(cst(u * b1 % R_MOD, xpts), xpts)))
+                    zc = ad(cst(u * z_high[0] % R_MOD, xpts),
+                            mm(cst(u * z_high[1] % R_MOD, xpts), xpts))
+                    zc = ad(zc, mm(cst(u * z_high[2] % R_MOD, xpts),
+                                   mm(xpts, xpts)))
+                    z_ph = ad(z_ph, zc)
+                t_phase.append(quotient_phase_dev(
+                    wire_ph, z_ph, out[5], sel_ph, sigma_ph, xpts, alpha,
+                    ch, to_dev_scalar(ph.zh_inv[i], dv), l1_vec))
+            t_inv = transform(torch.stack(t_phase), inverse=True)
+            inv_pows = torch.stack([dpk.phase_pows_inv(i, n_phases)
+                                    for i in range(n_phases)])
+            c_phase = list(mm(t_inv, inv_pows))
+            # t_{mn+k} from the phase coefficient streams: inverse
+            # Vandermonde in u_i = s_i^n (blinded: only chunks 0..4 are
+            # nonzero, deg t = 4n + 6)
+            chunks = lincomb_many(ph.vinv[:n_chunks], c_phase)
+            return chunks, commit_many(chunks)
+
+        chunks, chunk_comms = memo("r3", round3)
         t_labels = (L.T_1, L.T_2, L.T_3, L.T_4, L.T_5)[:n_chunks]
         for k, lbl in enumerate(t_labels):
             comm[f"t_{k + 1}"] = chunk_comms[k]
@@ -532,75 +583,81 @@ def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
 
     # ---------------- round 4: evaluations + linearization ----------
     with _timed(timings, "r4_evals", dv):
-        zeta_pows = powers_of(zeta, n)
-        zw_pows = powers_of(zw, n)
-        zeta_names = ("a", "b", "c", "d", "sigma1", "sigma2", "sigma3",
-                      "q_arith", "q_c", "q_l", "q_r")
-        zeta_polys = [wire_coeffs[w] for w in "abcd"] \
-            + list(dpk.sigma_coeffs[:3]) \
-            + [dpk.sel_coeffs[nm] for nm in ("q_arith", "q_c",
-                                             "q_l", "q_r")]
-        zw_names = ("a_next", "b_next", "d_next", "z_shifted")
-        zw_polys = [wire_coeffs[w] for w in "abd"] + [z_coeffs]
-        ev = dict(zip(zeta_names, ev_many(zeta_polys, zeta_pows)))
-        ev.update(zip(zw_names, ev_many(zw_polys, zw_pows)))
-        names = list(ev)
-        ev_i = dict(zip(names, from_dev(torch.cat([ev[k] for k in names]))))
-        if blinds is not None:
-            for w in "abcd":
-                ev_i[w] = (ev_i[w] + _hi(wire_high[w], zeta_i, n)) % R_MOD
-                if w != "c":
-                    ev_i[w + "_next"] = (ev_i[w + "_next"] + _hi(
-                        wire_high[w], zw_i, n)) % R_MOD
-            ev_i["z_shifted"] = (ev_i["z_shifted"]
-                                 + _hi(z_high, zw_i, n)) % R_MOD
+        def round4():
+            zeta_pows = powers_of(zeta, n)
+            zw_pows = powers_of(zw, n)
+            zeta_names = ("a", "b", "c", "d", "sigma1", "sigma2", "sigma3",
+                          "q_arith", "q_c", "q_l", "q_r")
+            zeta_polys = [wire_coeffs[w] for w in "abcd"] \
+                + list(dpk.sigma_coeffs[:3]) \
+                + [dpk.sel_coeffs[nm] for nm in ("q_arith", "q_c",
+                                                 "q_l", "q_r")]
+            zw_names = ("a_next", "b_next", "d_next", "z_shifted")
+            zw_polys = [wire_coeffs[w] for w in "abd"] + [z_coeffs]
+            ev = dict(zip(zeta_names, ev_many(zeta_polys, zeta_pows)))
+            ev.update(zip(zw_names, ev_many(zw_polys, zw_pows)))
+            names = list(ev)
+            ev_i = dict(zip(names, from_dev(torch.cat([ev[k]
+                                                       for k in names]))))
+            if blinds is not None:
+                for w in "abcd":
+                    ev_i[w] = (ev_i[w] + _hi(wire_high[w], zeta_i, n)) \
+                        % R_MOD
+                    if w != "c":
+                        ev_i[w + "_next"] = (ev_i[w + "_next"] + _hi(
+                            wire_high[w], zw_i, n)) % R_MOD
+                ev_i["z_shifted"] = (ev_i["z_shifted"]
+                                     + _hi(z_high, zw_i, n)) % R_MOD
 
-        co = host.linearization_coefficients(
-            ev_i, zeta_i, beta_i, gamma_i, alpha_i, ch_i, dom)
-        lin_names = ("q_m", "q_l", "q_r", "q_o", "q_4", "q_c",
-                     "q_range", "q_logic", "q_fixed", "q_vgadd")
-        r_coeffs = lincomb(
-            [co[nm] for nm in lin_names] + [co["z"], co["sigma4"]],
-            [dpk.sel_coeffs[nm] for nm in lin_names]
-            + [z_coeffs, dpk.sigma_coeffs[3]])
-        ev_i["r"] = from_dev(ev_many([r_coeffs], zeta_pows)[0])[0]
-        # r inherits z's high coefficients, scaled by co["z"]
-        r_high = tuple(co["z"] * h % R_MOD for h in z_high)
-        ev_i["r"] = (ev_i["r"] + _hi(r_high, zeta_i, n)) % R_MOD
-        pi_at_zeta = host.eval_pi(composer.pi, dom, zeta_i)
-        t_eval = host.compute_t_eval(ev_i, pi_at_zeta, zeta_i, beta_i,
-                                     gamma_i, alpha_i, dom)
+            co = host.linearization_coefficients(
+                ev_i, zeta_i, beta_i, gamma_i, alpha_i, ch_i, dom)
+            lin_names = ("q_m", "q_l", "q_r", "q_o", "q_4", "q_c",
+                         "q_range", "q_logic", "q_fixed", "q_vgadd")
+            r_coeffs = lincomb(
+                [co[nm] for nm in lin_names] + [co["z"], co["sigma4"]],
+                [dpk.sel_coeffs[nm] for nm in lin_names]
+                + [z_coeffs, dpk.sigma_coeffs[3]])
+            ev_i["r"] = from_dev(ev_many([r_coeffs], zeta_pows)[0])[0]
+            # r inherits z's high coefficients, scaled by co["z"]
+            r_high = tuple(co["z"] * h % R_MOD for h in z_high)
+            ev_i["r"] = (ev_i["r"] + _hi(r_high, zeta_i, n)) % R_MOD
+            pi_at_zeta = host.eval_pi(composer.pi, dom, zeta_i)
+            t_eval = host.compute_t_eval(ev_i, pi_at_zeta, zeta_i, beta_i,
+                                         gamma_i, alpha_i, dom)
+            return ev_i, r_coeffs, r_high, t_eval
+
+        ev_i, r_coeffs, r_high, t_eval = memo("r4", round4)
     host.append_evals(t, ev_i, t_eval)
     v_i = t.challenge_scalar(L.AGGREGATE_WITNESS)
 
     # ---------------- round 5: aggregate openings ----------------
     with _timed(timings, "r5_openings", dv):
-        zn = pow(zeta_i, n, R_MOD)
-        t_flat = lincomb([pow(zn, k, R_MOD) for k in range(n_chunks)],
-                         chunks)
-        agg_zeta = [
-            (t_flat, t_eval), (r_coeffs, ev_i["r"]),
-            (wire_coeffs["a"], ev_i["a"]), (wire_coeffs["b"], ev_i["b"]),
-            (wire_coeffs["c"], ev_i["c"]), (wire_coeffs["d"], ev_i["d"]),
-            (dpk.sigma_coeffs[0], ev_i["sigma1"]),
-            (dpk.sigma_coeffs[1], ev_i["sigma2"]),
-            (dpk.sigma_coeffs[2], ev_i["sigma3"]),
-            (dpk.sel_coeffs["q_arith"], ev_i["q_arith"]),
-            (dpk.sel_coeffs["q_c"], ev_i["q_c"]),
-            (dpk.sel_coeffs["q_l"], ev_i["q_l"]),
-            (dpk.sel_coeffs["q_r"], ev_i["q_r"]),
-        ]
-        agg_zw = [
-            (z_coeffs, ev_i["z_shifted"]),
-            (wire_coeffs["a"], ev_i["a_next"]),
-            (wire_coeffs["b"], ev_i["b_next"]),
-            (wire_coeffs["d"], ev_i["d_next"]),
-        ]
-        if blinds is None:
-            comm["w_z"], comm["w_zw"] = commit_many(
-                [_aggregate_open(agg_zeta, v_i, zeta_i),
-                 _aggregate_open(agg_zw, v_i, zw_i)])
-        else:
+        def round5():
+            zn = pow(zeta_i, n, R_MOD)
+            t_flat = lincomb([pow(zn, k, R_MOD) for k in range(n_chunks)],
+                             chunks)
+            agg_zeta = [
+                (t_flat, t_eval), (r_coeffs, ev_i["r"]),
+                (wire_coeffs["a"], ev_i["a"]), (wire_coeffs["b"], ev_i["b"]),
+                (wire_coeffs["c"], ev_i["c"]), (wire_coeffs["d"], ev_i["d"]),
+                (dpk.sigma_coeffs[0], ev_i["sigma1"]),
+                (dpk.sigma_coeffs[1], ev_i["sigma2"]),
+                (dpk.sigma_coeffs[2], ev_i["sigma3"]),
+                (dpk.sel_coeffs["q_arith"], ev_i["q_arith"]),
+                (dpk.sel_coeffs["q_c"], ev_i["q_c"]),
+                (dpk.sel_coeffs["q_l"], ev_i["q_l"]),
+                (dpk.sel_coeffs["q_r"], ev_i["q_r"]),
+            ]
+            agg_zw = [
+                (z_coeffs, ev_i["z_shifted"]),
+                (wire_coeffs["a"], ev_i["a_next"]),
+                (wire_coeffs["b"], ev_i["b_next"]),
+                (wire_coeffs["d"], ev_i["d_next"]),
+            ]
+            if blinds is None:
+                return tuple(commit_many(
+                    [_aggregate_open(agg_zeta, v_i, zeta_i),
+                     _aggregate_open(agg_zw, v_i, zw_i)]))
             hz = [(), r_high] + [wire_high[w] for w in "abcd"] + [()] * 7
             hzw = [z_high] + [wire_high[w] for w in "abd"]
             qz, qz_high = _aggregate_open_blinded(
@@ -610,8 +667,10 @@ def prove_device(composer, pk, committer, label=None, dpk: DevicePK = None,
                 [(c, v, h) for (c, v), h in zip(agg_zw, hzw)],
                 v_i, zw_i, n)
             cms = commit_many([qz, qzw])
-            comm["w_z"] = _blind_commit(cms[0], qz_high, high_pts)
-            comm["w_zw"] = _blind_commit(cms[1], qzw_high, high_pts)
+            return (_blind_commit(cms[0], qz_high, high_pts),
+                    _blind_commit(cms[1], qzw_high, high_pts))
+
+        comm["w_z"], comm["w_zw"] = memo("r5", round5)
     t.append_commitment(L.W_Z, comm["w_z"])
     t.append_commitment(L.W_Z_W, comm["w_zw"])
 

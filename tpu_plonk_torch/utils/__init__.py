@@ -1,1 +1,1 @@
-# Submodules: metrics, config.
+# Submodules: metrics, config, checkpoint, profiling.

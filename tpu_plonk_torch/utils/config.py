@@ -6,10 +6,11 @@ system.
 (the CUDA kernels), `host` on the CPU (their plain PyTorch versions);
 the port has no host prover of its own.  The default is `device` (the
 reference's is `host`): the port's entry points run on the card unless
-the caller asks for the CPU.  The reference's
-`--checkpoint` (round memoization for its host prover) is not ported,
-nor are its `--msm-window-bits` and `--mesh-devices`, which its
-commands never read."""
+the caller asks for the CPU.  `--checkpoint` names the round-boundary
+resume file of `demo`'s prove (utils/checkpoint.py; the reference's
+memoizes its host prover, the port's `prove_device`).  The reference's
+`--msm-window-bits` and `--mesh-devices`, which its commands never
+read, are not carried over."""
 
 import argparse
 import dataclasses
@@ -19,6 +20,7 @@ import dataclasses
 class Config:
     log_gates: int = 10           # circuit size target (2^k gates)
     engine: str = "device"        # 'device' (the card) | 'host' (CPU)
+    checkpoint: str = ""          # round-boundary resume file ('' = off)
     blind: str = ""               # ZK blinding seed ('' = deterministic)
     out: str = ""                 # artifact path prefix for prove/verify
 
@@ -35,6 +37,9 @@ def parse_args(argv=None) -> Config:
                    default="device",
                    help="device: the CUDA kernels on the card; host: "
                         "their plain PyTorch versions on the CPU")
+    p.add_argument("--checkpoint", default="",
+                   help="resume file: prover rounds memoized at this "
+                        "path survive a crash/restart")
     p.add_argument("--blind", default="",
                    help="ZK variant: seed for deterministic blinding "
                         "(5-chunk quotient, 1088-byte proofs); keep "
@@ -43,5 +48,5 @@ def parse_args(argv=None) -> Config:
                    help="artifact path prefix: prove writes "
                         "<out>.proof/.vk/.pi, verify reads them")
     a = p.parse_args(argv)
-    return Config(log_gates=a.log_gates, engine=a.engine, blind=a.blind,
-                  out=a.out)
+    return Config(log_gates=a.log_gates, engine=a.engine,
+                  checkpoint=a.checkpoint, blind=a.blind, out=a.out)
